@@ -6,6 +6,9 @@
 //   flash_fwd_kernel     <- _fwd_kernel      (_fwd_call, pallas_call :295)
 //   flash_bwd_dkv_kernel <- _bwd_dkv_kernel  (_bwd_call, pallas_call :524)
 //   flash_bwd_dq_kernel  <- _bwd_dq_kernel   (_bwd_call, pallas_call :561)
+// Each kernel has three compile-time modes: no dropout, explicit-mask
+// attention dropout (_keep_scale :134, _flash_dropout :622-645) and seeded
+// attention dropout (_seeded_keep_scale :141, _flash_seeded :649-672).
 //
 // Layout: q/k/v/o/do are (BH, S, D) row-major with S a multiple of the tile
 // (64 rows; the host pads) and D in {64, 128}; lse and delta are (BH, S)
@@ -37,6 +40,21 @@
 //  * tiles are 64 x 64 (32 x 32 for float32, which has no tensor-core path
 //    here and runs on the CUDA cores) and live in padded shared-memory rows
 //    (+8 elements) to spread the wmma loads over the banks.
+//
+// Attention dropout (torch semantics, as the TPU kernels apply it): the
+// softmax normaliser l sums the undropped P, the P.V product takes
+// P * keep / (1 - rate), dV takes the same dropped P, dP is multiplied by
+// keep / (1 - rate) before dS, and delta is unchanged.  The keep pattern of
+// a tile is written, as 0/1 in the input type, into the shared buffer that
+// the element loop then overwrites with P (or dS) element by element, so the
+// dropout modes need no shared memory of their own:
+//  * mask mode reads the (BH, S_q, S_k) uint8 keep-mask tile from device
+//    memory, 16 bytes per thread per step;
+//  * Philox mode draws it from Philox4x32-10 keyed by (seed, bh) with the
+//    counter (col / 4, row, 0, 0) in global element coordinates, one
+//    generator call per 4 keys, so the pattern does not depend on the tile
+//    size.  Skipped tiles draw nothing.  The TPU kernels key their on-chip
+//    generator per tile; its bits cannot be reproduced here.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -88,6 +106,33 @@ struct Lens {
   int kv_len;
 };
 
+// Attention-dropout modes, shared with the Python wrapper.
+enum Mode { kNoDropout = 0, kMaskDropout = 1, kPhiloxDropout = 2 };
+
+struct Dropout {
+  const uint8_t* mask;  // (BH, S_q, S_k) 0/1 keep-mask, mask mode
+  float scale;          // 1 / (1 - rate)
+  uint32_t threshold;   // Philox mode keeps an element when its word < this
+  uint32_t seed;        // Philox mode key word 0 (word 1 is bh)
+};
+
+// Philox4x32-10 (Salmon et al., SC'11; the Random123 constants).
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+  constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
+  constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k.x += kW0;
+      k.y += kW1;
+    }
+    const uint32_t hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
+    const uint32_t hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+  }
+  return c;
+}
+
 // _block_skip: the tile contributes nothing (all keys padding, or the whole
 // tile above the causal diagonal).
 __device__ __forceinline__ bool block_skip(bool causal, Lens L, int qb, int kb,
@@ -136,6 +181,42 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src) {
 template <int ROWS>
 __device__ __forceinline__ void load_vec(float* dst, const float* src) {
   for (int i = threadIdx.x; i < ROWS; i += blockDim.x) dst[i] = src[i];
+}
+
+// The 0/1 keep pattern of tile (qb, kb) of head bh, as the input type, into
+// a BM x BM shared tile whose rows are LD elements apart.
+template <typename T, int MODE, int BM, int LD>
+__device__ __forceinline__ void load_keep(T* dst, const Dropout& dr, int bh,
+                                          int s_q, int s_k, int qb, int kb) {
+  if constexpr (MODE == kMaskDropout) {
+    constexpr int kPerRow = BM / 16;
+    for (int i = threadIdx.x; i < BM * kPerRow; i += blockDim.x) {
+      const int r = i / kPerRow;
+      const int c = (i % kPerRow) * 16;
+      const uint4 bytes = *reinterpret_cast<const uint4*>(
+          dr.mask + (static_cast<size_t>(bh) * s_q + qb * BM + r) * s_k +
+          kb * BM + c);
+      const uint8_t* b = reinterpret_cast<const uint8_t*>(&bytes);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        dst[r * LD + c + j] = from_f<T>(b[j] ? 1.f : 0.f);
+    }
+  } else if constexpr (MODE == kPhiloxDropout) {
+    constexpr int kPerRow = BM / 4;
+    for (int i = threadIdx.x; i < BM * kPerRow; i += blockDim.x) {
+      const int r = i / kPerRow;
+      const int c4 = i % kPerRow;
+      const uint4 w = philox4x32_10(
+          make_uint4(static_cast<uint32_t>(kb * kPerRow + c4),
+                     static_cast<uint32_t>(qb * BM + r), 0u, 0u),
+          make_uint2(dr.seed, static_cast<uint32_t>(bh)));
+      T* out = dst + r * LD + c4 * 4;
+      out[0] = from_f<T>(w.x < dr.threshold ? 1.f : 0.f);
+      out[1] = from_f<T>(w.y < dr.threshold ? 1.f : 0.f);
+      out[2] = from_f<T>(w.z < dr.threshold ? 1.f : 0.f);
+      out[3] = from_f<T>(w.w < dr.threshold ? 1.f : 0.f);
+    }
+  }
 }
 
 // One warp: C[16][N] (+)= A(16 x KD) * B(KD x N), all operands in shared
@@ -259,12 +340,12 @@ struct DqSmem : Dims<T, D> {
 // softmax.  Outputs O (input type) and LSE (fp32, -1e30 for rows that see no
 // key, whose O is 0).
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, int MODE>
 __global__ void __launch_bounds__(Tile<T>::kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int s_q, int s_k, Lens L,
-                 bool causal, float sm_scale) {
+                 bool causal, float sm_scale, Dropout dr) {
   using Lay = FwdSmem<T, D>;
   constexpr int BM = Lay::BM, LDT = Lay::LDT, LDS = Lay::LDS, LDP = Lay::LDP,
                 LDO = Lay::LDO;
@@ -301,6 +382,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t k_base = static_cast<size_t>(bh) * s_k + kb * BM;
     load_tile<T, D, BM>(Ks, k + k_base * D);
     load_tile<T, D, BM>(Vs, v + k_base * D);
+    load_keep<T, MODE, BM, LDP>(Ps, dr, bh, s_q, s_k, qb, kb);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 query rows.
@@ -332,7 +414,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         // its normaliser stays 0.
         const float p = ok[t] ? expf(sv[t] - m_new) : 0.f;
         sum += p;
-        Ps[r * LDP + lane + 32 * t] = from_f<T>(p);
+        // Dropout scales P in the P.V product only; l keeps the undropped
+        // sum.  The slot holds this element's keep value until here.
+        T& slot = Ps[r * LDP + lane + 32 * t];
+        slot = from_f<T>(MODE == kNoDropout ? p
+                                            : p * (to_f(slot) * dr.scale));
       }
       sum = warp_sum(sum);
       __syncwarp();
@@ -373,14 +459,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // P is recomputed from LSE; dV += P^T dO, dP = dO V^T,
 // dS = P * (dP - delta) * scale, dK += dS^T Q.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, int MODE>
 __global__ void __launch_bounds__(Tile<T>::kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int s_q, int s_k, Lens L, bool causal,
-                     float sm_scale) {
+                     float sm_scale, Dropout dr) {
   using Lay = BwdSmem<T, D>;
   constexpr int BM = Lay::BM, LDT = Lay::LDT, LDS = Lay::LDS, LDP = Lay::LDP,
                 LDO = Lay::LDO;
@@ -421,6 +507,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, D, BM>(dOs, dout + q_base * D);
     load_vec<BM>(lse_s, lse + q_base);
     load_vec<BM>(delta_s, delta + q_base);
+    load_keep<T, MODE, BM, LDP>(Pt, dr, bh, s_q, s_k, qb, kb);
     __syncthreads();
 
     // Per query row (warp owns 16 rows): S = Q K^T, dP = dO V^T.
@@ -434,8 +521,17 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = i % BM;
       float p = expf(Ss[r * LDS + c] * sm_scale - lse_s[r]);
       if (!interior && !visible(causal, L, qb * BM + r, kb * BM + c)) p = 0.f;
-      const float ds = p * (dPs[r * LDS + c] - delta_s[r]) * sm_scale;
-      Pt[r * LDP + c] = from_f<T>(p);
+      float pv = p;
+      float dp = dPs[r * LDS + c];
+      if constexpr (MODE != kNoDropout) {
+        // dV takes the dropped P; dP is scaled by the same keep / (1 - rate)
+        // before dS, which multiplies the undropped P.
+        const float keep = to_f(Pt[r * LDP + c]) * dr.scale;
+        pv = p * keep;
+        dp = dp * keep;
+      }
+      const float ds = p * (dp - delta_s[r]) * sm_scale;
+      Pt[r * LDP + c] = from_f<T>(pv);
       dSt[r * LDP + c] = from_f<T>(ds);
     }
     __syncthreads();
@@ -460,13 +556,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Backward, dQ: one block per (bh, q tile); loops over k tiles.
 // dQ += dS K with the same recompute of P.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, int MODE>
 __global__ void __launch_bounds__(Tile<T>::kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int s_q, int s_k, Lens L, bool causal, float sm_scale) {
+                    int s_q, int s_k, Lens L, bool causal, float sm_scale,
+                    Dropout dr) {
   using Lay = DqSmem<T, D>;
   constexpr int BM = Lay::BM, LDT = Lay::LDT, LDS = Lay::LDS, LDP = Lay::LDP,
                 LDO = Lay::LDO;
@@ -503,6 +600,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t k_base = static_cast<size_t>(bh) * s_k + kb * BM;
     load_tile<T, D, BM>(Ks, k + k_base * D);
     load_tile<T, D, BM>(Vs, v + k_base * D);
+    load_keep<T, MODE, BM, LDP>(dSt, dr, bh, s_q, s_k, qb, kb);
     __syncthreads();
 
     warp_gemm<T, false, true, D, BM>(Qs + warp * 16 * LDT, LDT, Ks, LDT,
@@ -515,7 +613,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = i % BM;
       float p = expf(Ss[r * LDS + c] * sm_scale - lse_s[r]);
       if (!interior && !visible(causal, L, qb * BM + r, kb * BM + c)) p = 0.f;
-      dSt[r * LDP + c] = from_f<T>(p * (dPs[r * LDS + c] - delta_s[r]) * sm_scale);
+      float dp = dPs[r * LDS + c];
+      if constexpr (MODE != kNoDropout)
+        dp = dp * (to_f(dSt[r * LDP + c]) * dr.scale);
+      dSt[r * LDP + c] = from_f<T>(p * (dp - delta_s[r]) * sm_scale);
     }
     __syncwarp();
     warp_gemm<T, false, false, BM, D>(dSt + warp * 16 * LDP, LDP, Ks, LDT,
@@ -535,71 +636,85 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <typename T, int D>
+template <typename T, int D, int MODE>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 float* lse, int bh, int s_q, int s_k, Lens L, bool causal,
-                float scale, cudaStream_t stream) {
+                float scale, Dropout dr, cudaStream_t stream) {
   using Lay = FwdSmem<T, D>;
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_kernel<T, D, MODE>;
   cudaError_t err = prepare(kernel, Lay::bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(bh, s_q / Lay::BM);
   kernel<<<grid, Tile<T>::kThreads, Lay::bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, s_q, s_k, L, causal,
-      scale);
+      scale, dr);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int MODE>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
                     void* dk, void* dv, int bh, int s_q, int s_k, Lens L,
-                    bool causal, float scale, cudaStream_t stream) {
+                    bool causal, float scale, Dropout dr, cudaStream_t stream) {
   using Lay = BwdSmem<T, D>;
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
+  auto kernel = flash_bwd_dkv_kernel<T, D, MODE>;
   cudaError_t err = prepare(kernel, Lay::bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(bh, s_k / Lay::BM);
   kernel<<<grid, Tile<T>::kThreads, Lay::bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), s_q, s_k, L, causal, scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), s_q, s_k, L, causal, scale,
+      dr);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int MODE>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, int bh, int s_q, int s_k, Lens L, bool causal,
-                   float scale, cudaStream_t stream) {
+                   float scale, Dropout dr, cudaStream_t stream) {
   using Lay = DqSmem<T, D>;
-  auto kernel = flash_bwd_dq_kernel<T, D>;
+  auto kernel = flash_bwd_dq_kernel<T, D, MODE>;
   cudaError_t err = prepare(kernel, Lay::bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(bh, s_q / Lay::BM);
   kernel<<<grid, Tile<T>::kThreads, Lay::bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), s_q, s_k, L, causal, scale);
+      static_cast<T*>(dq), s_q, s_k, L, causal, scale, dr);
   return cudaGetLastError();
 }
 
 // dtype codes shared with the Python wrapper.
 enum DType { kFloat32 = 0, kFloat16 = 1, kBFloat16 = 2 };
 
-#define HVD_DISPATCH(DTYPE, HEAD_DIM, FN, ...)                             \
-  do {                                                                      \
-    if ((HEAD_DIM) == 64) {                                                 \
-      if ((DTYPE) == kBFloat16) return FN<__nv_bfloat16, 64>(__VA_ARGS__);  \
-      if ((DTYPE) == kFloat16) return FN<__half, 64>(__VA_ARGS__);          \
-      if ((DTYPE) == kFloat32) return FN<float, 64>(__VA_ARGS__);           \
-    } else if ((HEAD_DIM) == 128) {                                         \
-      if ((DTYPE) == kBFloat16) return FN<__nv_bfloat16, 128>(__VA_ARGS__); \
-      if ((DTYPE) == kFloat16) return FN<__half, 128>(__VA_ARGS__);         \
-      if ((DTYPE) == kFloat32) return FN<float, 128>(__VA_ARGS__);          \
-    }                                                                       \
-    return cudaErrorInvalidValue;                                           \
+#define HVD_DISPATCH_TYPE(DTYPE, HEAD_DIM, MODE, FN, ...)                      \
+  do {                                                                         \
+    if ((HEAD_DIM) == 64) {                                                    \
+      if ((DTYPE) == kBFloat16)                                                \
+        return FN<__nv_bfloat16, 64, MODE>(__VA_ARGS__);                       \
+      if ((DTYPE) == kFloat16) return FN<__half, 64, MODE>(__VA_ARGS__);       \
+      if ((DTYPE) == kFloat32) return FN<float, 64, MODE>(__VA_ARGS__);        \
+    } else if ((HEAD_DIM) == 128) {                                            \
+      if ((DTYPE) == kBFloat16)                                                \
+        return FN<__nv_bfloat16, 128, MODE>(__VA_ARGS__);                      \
+      if ((DTYPE) == kFloat16) return FN<__half, 128, MODE>(__VA_ARGS__);      \
+      if ((DTYPE) == kFloat32) return FN<float, 128, MODE>(__VA_ARGS__);       \
+    }                                                                          \
+    return cudaErrorInvalidValue;                                              \
+  } while (0)
+
+#define HVD_DISPATCH(DTYPE, HEAD_DIM, MODE, FN, ...)                           \
+  do {                                                                         \
+    if ((MODE) == kNoDropout)                                                  \
+      HVD_DISPATCH_TYPE(DTYPE, HEAD_DIM, kNoDropout, FN, __VA_ARGS__);         \
+    if ((MODE) == kMaskDropout)                                                \
+      HVD_DISPATCH_TYPE(DTYPE, HEAD_DIM, kMaskDropout, FN, __VA_ARGS__);       \
+    if ((MODE) == kPhiloxDropout)                                              \
+      HVD_DISPATCH_TYPE(DTYPE, HEAD_DIM, kPhiloxDropout, FN, __VA_ARGS__);     \
+    return cudaErrorInvalidValue;                                              \
   } while (0)
 
 }  // namespace
@@ -610,34 +725,49 @@ const char* hvd_flash_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int hvd_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
-                  const void* v, void* o, float* lse, int bh, int s_q,
-                  int s_k, int q_off, int k_off, int kv_len, int causal,
-                  float scale, void* stream) {
+// Every entry point takes the dropout mode (enum Mode), the keep-mask
+// (mask mode; else null), 1 / (1 - rate), the Philox threshold and seed.
+
+int hvd_flash_fwd(int dtype, int head_dim, int mode, const void* q,
+                  const void* k, const void* v, void* o, float* lse,
+                  const void* mask, int bh, int s_q, int s_k, int q_off,
+                  int k_off, int kv_len, int causal, float scale,
+                  float keep_scale, unsigned threshold, unsigned seed,
+                  void* stream) {
   const Lens L{q_off, k_off, kv_len};
-  HVD_DISPATCH(dtype, head_dim, fwd, q, k, v, o, lse, bh, s_q, s_k, L,
-               causal != 0, scale, static_cast<cudaStream_t>(stream));
+  const Dropout dr{static_cast<const uint8_t*>(mask), keep_scale, threshold,
+                   seed};
+  HVD_DISPATCH(dtype, head_dim, mode, fwd, q, k, v, o, lse, bh, s_q, s_k, L,
+               causal != 0, scale, dr, static_cast<cudaStream_t>(stream));
 }
 
-int hvd_flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
-                      const void* v, const void* dout, const float* lse,
-                      const float* delta, void* dk, void* dv, int bh, int s_q,
-                      int s_k, int q_off, int k_off, int kv_len, int causal,
-                      float scale, void* stream) {
+int hvd_flash_bwd_dkv(int dtype, int head_dim, int mode, const void* q,
+                      const void* k, const void* v, const void* dout,
+                      const float* lse, const float* delta, void* dk, void* dv,
+                      const void* mask, int bh, int s_q, int s_k, int q_off,
+                      int k_off, int kv_len, int causal, float scale,
+                      float keep_scale, unsigned threshold, unsigned seed,
+                      void* stream) {
   const Lens L{q_off, k_off, kv_len};
-  HVD_DISPATCH(dtype, head_dim, bwd_dkv, q, k, v, dout, lse, delta, dk, dv,
-               bh, s_q, s_k, L, causal != 0, scale,
+  const Dropout dr{static_cast<const uint8_t*>(mask), keep_scale, threshold,
+                   seed};
+  HVD_DISPATCH(dtype, head_dim, mode, bwd_dkv, q, k, v, dout, lse, delta, dk,
+               dv, bh, s_q, s_k, L, causal != 0, scale, dr,
                static_cast<cudaStream_t>(stream));
 }
 
-int hvd_flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
-                     const void* v, const void* dout, const float* lse,
-                     const float* delta, void* dq, int bh, int s_q, int s_k,
-                     int q_off, int k_off, int kv_len, int causal, float scale,
+int hvd_flash_bwd_dq(int dtype, int head_dim, int mode, const void* q,
+                     const void* k, const void* v, const void* dout,
+                     const float* lse, const float* delta, void* dq,
+                     const void* mask, int bh, int s_q, int s_k, int q_off,
+                     int k_off, int kv_len, int causal, float scale,
+                     float keep_scale, unsigned threshold, unsigned seed,
                      void* stream) {
   const Lens L{q_off, k_off, kv_len};
-  HVD_DISPATCH(dtype, head_dim, bwd_dq, q, k, v, dout, lse, delta, dq, bh,
-               s_q, s_k, L, causal != 0, scale,
+  const Dropout dr{static_cast<const uint8_t*>(mask), keep_scale, threshold,
+                   seed};
+  HVD_DISPATCH(dtype, head_dim, mode, bwd_dq, q, k, v, dout, lse, delta, dq,
+               bh, s_q, s_k, L, causal != 0, scale, dr,
                static_cast<cudaStream_t>(stream));
 }
 

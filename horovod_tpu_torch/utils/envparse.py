@@ -87,6 +87,17 @@ ZERO = register(
     "ZeRO-1 cross-replica sharded weight update (not ported yet: "
     "DistributedOptimizer raises when it is on)")
 
+# -- kernels ----------------------------------------------------------------
+BRIDGE_FLASH = register(
+    "BRIDGE_FLASH", "auto",
+    "Route torch-bridge attention on CPU tensors through the flash "
+    "kernels' plain versions: auto (no: the einsum lowering) | always | "
+    "never. CUDA tensors always take the kernels; never raises there")
+FLASH_DROPOUT = register(
+    "FLASH_DROPOUT", "auto",
+    "Flash-attention dropout strategy: auto (the seeded, Philox, kernels "
+    "on CUDA tensors; an explicit keep-mask on the CPU) | mask | prng")
+
 # --------------------------------------------------------------------------
 # Launcher-set variables (analog of HOROVOD_RANK/SIZE/...; reference:
 # horovod/runner/gloo_run.py:65-77). NOT registered: they are outputs

@@ -1,7 +1,8 @@
 """The port's CUDA kernels through the differentiable entry point, on the
 card: ``flash_attention`` forward and backward against the dense
-``reference_attention`` (autograd through plain PyTorch), and one launch of
-each kernel per forward/backward.
+``reference_attention`` (autograd through plain PyTorch), without dropout and
+in both dropout modes (an explicit keep-mask, and a seed whose Philox pattern
+the reference is fed), and one launch of each kernel per forward/backward.
 
 Needs a CUDA device and nvcc; everywhere else every test skips. Imports
 only torch and the port, so it runs where JAX is not installed:
@@ -97,4 +98,53 @@ def test_one_launch_per_kernel_per_forward_and_backward(cuda):
     tfa.reset_launches()
     _grads(lambda q, k, v: tfa.flash_attention(q, k, v, causal=True),
            (q, k, v), g)
-    assert tfa.LAUNCHES == {"fwd": 1, "bwd_dkv": 1, "bwd_dq": 1}
+    assert {n: c for n, c in tfa.LAUNCHES.items() if c} == \
+        {"fwd": 1, "bwd_dkv": 1, "bwd_dq": 1}
+
+
+def _padded_philox_mask(seed, shape, rate, device):
+    """The seeded kernels' keep pattern, cut to the unpadded (B, H, Sq, Sk)."""
+    b, h, s, _ = shape
+    s_pad = -(-s // tfa.SEQ_PAD) * tfa.SEQ_PAD
+    m = tfa.philox_keep_mask(seed, b * h, s_pad, s_pad, rate, device)
+    return m[:, :s, :s].reshape(b, h, s, s)
+
+
+@pytest.mark.parametrize("mode", ["mask", "philox"])
+@pytest.mark.parametrize("shape,kw", CASES)
+@pytest.mark.parametrize("dtype,fwd_tol,grad_tol", [
+    (torch.float32, 2e-5, 5e-4), (torch.bfloat16, 3e-2, 3e-2)])
+def test_dropout_kernels_match_dense_reference(cuda, mode, shape, kw, dtype,
+                                               fwd_tol, grad_tol):
+    rate = 0.1
+    q, k, v, g = _inputs(shape, dtype, cuda)
+    if mode == "mask":
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        mask = torch.rand(shape[:3] + (shape[2],), generator=gen,
+                          device=cuda) < 1 - rate
+        drop = dict(dropout_mask=mask)
+    else:
+        mask = _padded_philox_mask(11, shape, rate, cuda)
+        drop = dict(dropout_seed=11)
+    tfa.reset_launches()
+    got, got_g = _grads(lambda q, k, v: tfa.flash_attention(
+        q, k, v, dropout_rate=rate, **drop, **kw), (q, k, v), g)
+    want, want_g = _grads(
+        lambda q, k, v: tfa.reference_attention(
+            q.float(), k.float(), v.float(), dropout_mask=mask,
+            dropout_rate=rate, **kw),
+        (q, k, v), g)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in tfa.LAUNCHES.items() if c} == \
+        {f"fwd_{mode}": 1, f"bwd_dkv_{mode}": 1, f"bwd_dq_{mode}": 1}
+    torch.testing.assert_close(got.float(), want.float(), atol=fwd_tol,
+                               rtol=fwd_tol)
+    for a, b in zip(got_g, want_g):
+        torch.testing.assert_close(a.float(), b.float(), atol=grad_tol,
+                                   rtol=grad_tol)
+
+
+def test_philox_mask_on_the_card_matches_the_cpu(cuda):
+    on_card = tfa.philox_keep_mask(5, 4, 128, 256, 0.1, cuda).cpu()
+    assert torch.equal(on_card, tfa.philox_keep_mask(5, 4, 128, 256, 0.1,
+                                                     "cpu"))

@@ -266,15 +266,8 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     tfa.reset_launches()
     q = torch.tensor(_np((1, 1, 64, 64), 0))
     tfa.flash_attention(q, q, q, causal=True)
-    assert tfa.LAUNCHES == {"fwd": 0, "bwd_dkv": 0, "bwd_dq": 0}
-
-
-@pytest.mark.parametrize("kwargs", [
-    {"dropout_mask": torch.ones(1, 1, 64, 64, dtype=torch.bool),
-     "dropout_rate": 0.1},
-    {"dropout_seed": 3, "dropout_rate": 0.1},
-])
-def test_dropout_is_not_ported_and_says_where_it_is_queued(kwargs):
-    q = torch.zeros(1, 1, 64, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfa.flash_attention(q, q, q, **kwargs)
+    tfa.flash_attention(q, q, q, dropout_seed=3, dropout_rate=0.1)
+    assert set(tfa.LAUNCHES) == {
+        f"{k}{m}" for k in ("fwd", "bwd_dkv", "bwd_dq")
+        for m in ("", "_mask", "_philox")}
+    assert not any(tfa.LAUNCHES.values())

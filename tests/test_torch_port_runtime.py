@@ -26,7 +26,8 @@ def cpu_runtime():
 
 def test_import_pulls_in_no_jax_and_no_horovod_tpu():
     code = ("import sys, horovod_tpu_torch, horovod_tpu_torch.models, "
-            "horovod_tpu_torch.train\n"
+            "horovod_tpu_torch.train, horovod_tpu_torch.torch, "
+            "horovod_tpu_torch.torch.compile\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'horovod_tpu' or "
             "m.startswith('horovod_tpu.')]\n"
@@ -161,7 +162,8 @@ def test_knobs_and_reduce_ops_match_the_jax_package():
     assert tenv._PREFIXES == jenv._PREFIXES
     # The port declares the knobs it reads, each under the JAX package's
     # name and default.
-    assert set(tenv.KNOBS) == {"LOG_LEVEL", "BUCKET_BYTES", "ZERO"}
+    assert set(tenv.KNOBS) == {"LOG_LEVEL", "BUCKET_BYTES", "ZERO",
+                               "BRIDGE_FLASH", "FLASH_DROPOUT"}
     for name, knob in tenv.KNOBS.items():
         assert getattr(tenv, name) == name
         assert knob["default"] == jenv.KNOBS[name]["default"]
