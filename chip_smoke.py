@@ -2,9 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from this checkout and holds each kernel, in each
-dropout mode, against its plain PyTorch version on the card. Then drives
-the port's two training paths at full width:
+Builds the CUDA kernels from this checkout (one nvcc per source, all
+started together), prints each kernel instance's registers, shared memory
+and spill bytes, and holds each kernel, in each dropout mode, against its
+plain PyTorch version on the card. Then drives the port's two training
+paths at full width:
 
 - the TransformerLM (vocab 30522, hidden 1024, 24 layers, 16 heads, seq
   512, causal, RoPE, flash attention): 5 AdamW steps at batch 8 through
@@ -59,13 +61,17 @@ KERNEL_TOL = {"bfloat16": (1e-2, 2 ** -6, 1e-2),
 _TPU_KERNEL = {"fwd": "horovod_tpu/ops/flash_attention.py:165",
                "bwd_dkv": "horovod_tpu/ops/flash_attention.py:309",
                "bwd_dq": "horovod_tpu/ops/flash_attention.py:404"}
+# Source of the instance the timed (bf16) shapes run.
+_SOURCE = {"fwd": "horovod_tpu_torch/csrc/flash_fwd_sm90.cu",
+           "bwd_dkv": "horovod_tpu_torch/csrc/flash_dkv_sm90.cu",
+           "bwd_dq": "horovod_tpu_torch/csrc/flash_attention.cu"}
 _SDPA = {"fwd": "sdpa flash forward",
          "bwd_dkv": "sdpa flash backward (dQ, dK, dV in one call)",
          "bwd_dq": "sdpa flash backward (dQ, dK, dV in one call)"}
 KERNELS = {
-    # name -> (TPU kernel it replaces, SDPA call timed beside it)
+    # name -> (TPU kernel it replaces, SDPA call timed beside it, source)
     f"{k}{m}": (_TPU_KERNEL[k], _SDPA[k] + (" with dropout_p=0.1" if m
-                                             else ""))
+                                             else ""), _SOURCE[k])
     for m in ("", "_mask", "_philox") for k in _TPU_KERNEL}
 BERT = dict(vocab_size=30522, hidden_size=1024, num_hidden_layers=24,
             num_attention_heads=16, intermediate_size=4096,
@@ -314,7 +320,7 @@ def visible_pairs(s_q, s_k, q_off, k_off, kv_len, causal):
     """(query, key) pairs the mask keeps: the work this data needs."""
     rows = q_off + torch.arange(s_q)[:, None]
     cols = torch.arange(s_k)[None, :]
-    keep = cols < kv_len
+    keep = (cols < kv_len).expand(s_q, s_k)
     if causal:
         keep = keep & (rows >= k_off + cols)
     return int(keep.sum())
@@ -394,6 +400,10 @@ def kernel_phase(fa):
         ("ragged causal fp16 d=128", 4, 300, 100, torch.float16, True,
          ragged, "", False),
     ]
+    for mode in ("", "mask", "philox"):
+        # D 128 on the 16-bit kernels: dK/dV takes 32-query sub-tiles there
+        cases.append((f"ragged causal offset bf16 d=128 {mode or 'none'}", 4,
+                      300, 100, torch.bfloat16, True, ragged, mode, False))
     for mode in ("mask", "philox"):
         cases += [
             (f"bert {mode}", bert_bh, BERT_SEQ, bert_d, torch.bfloat16,
@@ -490,6 +500,32 @@ def kernel_phase(fa):
                 f"{r['plain_ms']:.3f} ms | bound {b_ms:.4f} ms ({b_by}) | "
                 f"{KERNELS[name][1]} {r['library_ms']:.4f} ms")
     return results
+
+
+def attributes_phase(fa):
+    """Prints the registers, shared memory and spill bytes of every kernel
+    instance (kernel x dtype x head dim x dropout mode), from
+    cudaFuncGetAttributes; fails if a wgmma kernel spills at head dim 64."""
+    table = {}
+    log("[attrs] kernel instance: registers/thread, static + dynamic shared "
+        "bytes, local (spill) bytes/thread")
+    for kernel in ("fwd", "bwd_dkv", "bwd_dq"):
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            for d in (64, 128):
+                for mode in ("", "mask", "philox"):
+                    a = fa.kernel_attributes(kernel, dtype, d, mode)
+                    table[(kernel, str(dtype).removeprefix("torch."), d,
+                           mode)] = a
+                    log(f"  {kernel + ('_' + mode if mode else ''):<14} "
+                        f"{str(dtype).removeprefix('torch.'):<8} d={d:<3} "
+                        f"regs {a['regs']:>3}  smem {a['static_smem']} + "
+                        f"{a['dynamic_smem']:>6}  local {a['local_bytes']}")
+    spills = [key for key, a in table.items() if a["local_bytes"]
+              and key[0] in ("fwd", "bwd_dkv") and key[1] != "float32"
+              and key[2] == 64]
+    if spills:
+        fail(f"the wgmma kernels spill to local memory at head dim 64: "
+             f"{spills}")
 
 
 def library_times(q, k, v, do, flush_buf, causal, dropout_p):
@@ -960,10 +996,15 @@ def main():
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    _build.build(["flash_attention"])
-    log(f"[build] flash_attention.cu -> {_build.library_path('flash_attention').name} "
-        f"in {time.perf_counter() - t0:.1f} s")
+    build_log = _build.build(["flash_attention"])
+    log(f"[build] {', '.join(p.name for p in _build.sources('flash_attention'))}"
+        f" -> {_build.library_path('flash_attention').name} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for unit, text in build_log.items():
+        if text.strip():
+            log(f"[build] {unit}:\n{text.strip()[-4000:]}")
 
+    attributes_phase(fa)
     results = kernel_phase(fa)
     hvd.init()
     model_check(hvd, models, torch)
@@ -980,7 +1021,7 @@ def main():
 
     line = {"kernels": [
         {"name": name, "route": "cuda",
-         "source": "horovod_tpu_torch/csrc/flash_attention.cu",
+         "source": KERNELS[name][2],
          "replaces": KERNELS[name][0], "launches": launches[name],
          "library_call": KERNELS[name][1], **results[name]}
         for name in KERNELS]}

@@ -1,10 +1,12 @@
 """Build the package's CUDA sources into shared libraries and load them.
 
-Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into
-``_build/lib<name>-<hash>.so`` on first use, and is loaded with ctypes. The
-file name carries a hash of the source, so an edited source rebuilds and a
-stale library is never loaded. There is no fallback: a missing ``nvcc`` or a
-failed compile raises.
+A library is one or more translation units under ``csrc/``
+(``LIBRARIES``). Each unit compiles with its own ``nvcc`` process for Hopper
+(``sm_90a``), all started together, and the objects link into
+``_build/lib<name>-<hash>.so`` on first use, loaded with ctypes. The file
+name carries a hash of the library's sources and of every header in
+``csrc/``, so an edited source rebuilds and a stale library is never
+loaded. There is no fallback: a missing ``nvcc`` or a failed compile raises.
 """
 
 import ctypes
@@ -19,7 +21,12 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
+#: Translation units of each library; the first holds its C entry points.
+LIBRARIES = {
+    "flash_attention": ("flash_attention.cu", "flash_fwd_sm90.cu",
+                        "flash_dkv_sm90.cu"),
+}
 
 _lock = threading.Lock()
 _loaded = {}
@@ -33,16 +40,33 @@ def nvcc_path():
     return next((c for c in candidates if c and os.access(c, os.X_OK)), None)
 
 
+def sources(name):
+    return [CSRC / s for s in LIBRARIES[name]]
+
+
 def library_path(name):
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in sources(name) + sorted(CSRC.glob("*.cuh")):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _run(procs):
+    """Waits for ``{key: Popen}``; returns ``{key: output}`` and the keys
+    that failed."""
+    logs, failed = {}, []
+    for key, proc in procs.items():
+        logs[key] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(key)
+    return logs, failed
 
 
 def build(names):
-    """Compile every named source that has no current library, all nvcc
-    processes started together. Returns ``{name: compiler output}`` for
-    the sources it compiled. Raises RuntimeError if a compile fails."""
+    """Compile every named library that has no current one: one nvcc per
+    translation unit, all started together, then one link per library.
+    Returns ``{source or library name: compiler output}`` for what it
+    built. Raises RuntimeError if a compile or a link fails."""
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
@@ -52,30 +76,44 @@ def build(names):
             "horovod_tpu_torch: nvcc not found (set CUDA_HOME or put nvcc on "
             "PATH); the CUDA kernels cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    tag = f"{os.getpid()}.tmp"
+    objects, procs = {}, {}
     for name in todo:
-        out = library_path(name)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    logs, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        logs[name] = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (rc {proc.returncode}):\n{logs[name]}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)   # atomic: a reader never sees half a file
+        for src in sources(name):
+            obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+            objects.setdefault(name, []).append(obj)
+            procs[src.name] = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    logs, failed = _run(procs)
+    if not failed:
+        links = {}
+        for name in todo:
+            tmp = library_path(name).with_suffix(f".{tag}")
+            links[name] = (subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                 *map(str, objects[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                tmp)
+        link_logs, failed = _run({n: p for n, (p, _) in links.items()})
+        logs.update(link_logs)
+        for name, (_, tmp) in links.items():
+            if name in failed:
+                tmp.unlink(missing_ok=True)
+            else:
+                # atomic: a reader never sees half a file
+                os.replace(tmp, library_path(name))
+    for objs in objects.values():
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("nvcc failed for " + "\n".join(
+            f"{key}:\n{logs[key]}" for key in failed))
     return logs
 
 
 def load(name):
-    """The ctypes library of ``csrc/<name>.cu``, built on first use."""
+    """The ctypes library ``name``, built on first use."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:

@@ -1,6 +1,9 @@
 // Flash attention for Hopper (sm_90a): forward, dK/dV backward and dQ
 // backward, each a hand-written CUDA kernel behind a plain C interface that
-// horovod_tpu_torch/ops/flash_attention.py loads with ctypes.
+// horovod_tpu_torch/ops/flash_attention.py loads with ctypes.  This file
+// holds the entry points, the dQ kernel, and the float32 forward and dK/dV;
+// the bf16/fp16 forward and dK/dV are the wgmma kernels of flash_fwd_sm90.cu
+// and flash_dkv_sm90.cu, which every 16-bit call reaches.
 //
 // Replaces the three Pallas TPU kernels of horovod_tpu/ops/flash_attention.py:
 //   flash_fwd_kernel     <- _fwd_kernel      (_fwd_call, pallas_call :295)
@@ -16,38 +19,28 @@
 // mask (q_off + row >= k_off + col) and the key-padding mask (col < kv_len),
 // exactly as the TPU kernels read them from their scalar-prefetch operand.
 //
-// What bounds them on the H100.  At the training shape (BH = 8*16, S = 512,
-// D = 64, causal) a forward reads/writes ~34 MB and does ~4.3 GFLOP, so the
-// ideal kernel is memory-bound (~10 us at 3.35 TB/s), while each backward is
-// ~2.5x the forward's FLOPs and still near the ridge.  What actually bounds
-// this first version is the tensor-core issue rate of 16x16x16 wmma products
-// out of shared memory, with one block of 4 warps per (bh, tile): there is
-// no TMA, no wgmma and no warp specialisation yet (later work).
-//
-// What the design does about it:
-//  * every product runs on tensor cores (bf16/fp16 operands, fp32
-//    accumulators) -- P and dS are rounded to the input type before their
-//    products, as the TPU kernels round them for the MXU;
-//  * the sequential TPU grid axis (k tiles for the forward and dQ, q tiles
-//    for dK/dV) becomes a loop inside the block, with the running max,
-//    normaliser and accumulators kept in shared memory, so the S x S score
-//    matrix never reaches device memory;
-//  * tiles that are entirely masked (causal upper triangle, key padding) are
-//    skipped and fully visible tiles skip the mask (the _block_skip and
-//    _tile_interior rules), which halves the causal work;
-//  * dK/dV and dQ stay two kernels, as on the TPU: each output tile is owned
-//    by one block, so there are no atomics and the backward is deterministic;
-//  * tiles are 64 x 64 (32 x 32 for float32, which has no tensor-core path
-//    here and runs on the CUDA cores) and live in padded shared-memory rows
-//    (+8 elements) to spread the wmma loads over the banks.
+// The kernels of this file (dQ in every type; forward and dK/dV in
+// float32) keep the first design: one block of 4 warps per (bh, tile),
+// 16x16x16 wmma products out of shared memory for bf16/fp16 (float32 has no
+// tensor-core path here and runs on the CUDA cores), the running max,
+// normaliser and accumulators in shared memory, the sequential TPU grid axis
+// as a loop inside the block, and tiles that are entirely masked skipped
+// (_block_skip; _tile_interior tiles skip the mask).  dK/dV and dQ stay two
+// kernels, as on the TPU: each output tile is owned by one block, so there
+// are no atomics and the backward is deterministic.  Tiles are 64 x 64
+// (32 x 32 for float32) in padded shared-memory rows (+8 elements).
+// What bounds them on the H100: at the training shape (BH = 8*16, S = 512,
+// D = 64, causal) dQ's ideal is near the ridge (~13 us of HBM traffic,
+// ~6 us of tensor-core time), but this design is bound by the instruction
+// rate of wmma products and accumulators out of shared memory, with one
+// block of 4 warps per tile; float32 by the CUDA cores' FMA rate.
 //
 // Attention dropout (torch semantics, as the TPU kernels apply it): the
 // softmax normaliser l sums the undropped P, the P.V product takes
 // P * keep / (1 - rate), dV takes the same dropped P, dP is multiplied by
-// keep / (1 - rate) before dS, and delta is unchanged.  The keep pattern of
-// a tile is written, as 0/1 in the input type, into the shared buffer that
-// the element loop then overwrites with P (or dS) element by element, so the
-// dropout modes need no shared memory of their own:
+// keep / (1 - rate) before dS, and delta is unchanged.  Here the keep pattern
+// of a tile is written, as 0/1 in the input type, into the shared buffer that
+// the element loop then overwrites with P (or dS) element by element:
 //  * mask mode reads the (BH, S_q, S_k) uint8 keep-mask tile from device
 //    memory, 16 bytes per thread per step;
 //  * Philox mode draws it from Philox4x32-10 keyed by (seed, bh) with the
@@ -64,11 +57,13 @@
 
 #include <type_traits>
 
+#include "flash_common.cuh"
+
 using namespace nvcuda;
 
 namespace {
 
-constexpr float kNegInf = -1e30f;  // the TPU kernels' _NEG_INF
+using namespace hvd_flash;
 
 template <typename T>
 struct Tile {
@@ -79,79 +74,6 @@ struct Tile {
 
 __host__ __device__ constexpr size_t align128(size_t x) {
   return (x + 127) & ~static_cast<size_t>(127);
-}
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-struct Lens {
-  int q_off;
-  int k_off;
-  int kv_len;
-};
-
-// Attention-dropout modes, shared with the Python wrapper.
-enum Mode { kNoDropout = 0, kMaskDropout = 1, kPhiloxDropout = 2 };
-
-struct Dropout {
-  const uint8_t* mask;  // (BH, S_q, S_k) 0/1 keep-mask, mask mode
-  float scale;          // 1 / (1 - rate)
-  uint32_t threshold;   // Philox mode keeps an element when its word < this
-  uint32_t seed;        // Philox mode key word 0 (word 1 is bh)
-};
-
-// Philox4x32-10 (Salmon et al., SC'11; the Random123 constants).
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-  constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
-  constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k.x += kW0;
-      k.y += kW1;
-    }
-    const uint32_t hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
-    const uint32_t hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
-
-// _block_skip: the tile contributes nothing (all keys padding, or the whole
-// tile above the causal diagonal).
-__device__ __forceinline__ bool block_skip(bool causal, Lens L, int qb, int kb,
-                                           int bm) {
-  bool skip = kb * bm >= L.kv_len;
-  if (causal) skip = skip || (L.q_off + qb * bm + bm - 1 < L.k_off + kb * bm);
-  return skip;
-}
-
-// _tile_interior: no element of the tile is masked.
-__device__ __forceinline__ bool tile_interior(bool causal, Lens L, int qb,
-                                              int kb, int bm) {
-  bool inside = (kb + 1) * bm <= L.kv_len;
-  if (causal) inside = inside && (L.k_off + kb * bm + bm - 1 <= L.q_off + qb * bm);
-  return inside;
-}
-
-__device__ __forceinline__ bool visible(bool causal, Lens L, int row, int col) {
-  return col < L.kv_len && (!causal || L.q_off + row >= L.k_off + col);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -336,16 +258,17 @@ struct DqSmem : Dims<T, D> {
 };
 
 // ---------------------------------------------------------------------------
-// Forward: one block per (bh, q tile); loops over k tiles with an online
-// softmax.  Outputs O (input type) and LSE (fp32, -1e30 for rows that see no
-// key, whose O is 0).
+// Forward, float32: one block per (bh, q tile); loops over k tiles with an
+// online softmax.  Outputs O (input type) and LSE (fp32, -1e30 for rows that
+// see no key, whose O is 0).  bf16/fp16: flash_fwd_sm90.cu.
 // ---------------------------------------------------------------------------
-template <typename T, int D, int MODE>
-__global__ void __launch_bounds__(Tile<T>::kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int s_q, int s_k, Lens L,
-                 bool causal, float sm_scale, Dropout dr) {
+template <int D, int MODE>
+__global__ void __launch_bounds__(Tile<float>::kThreads)
+flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, int s_q, int s_k, Lens L,
+                      bool causal, float sm_scale, Dropout dr) {
+  using T = float;
   using Lay = FwdSmem<T, D>;
   constexpr int BM = Lay::BM, LDT = Lay::LDT, LDS = Lay::LDS, LDP = Lay::LDP,
                 LDO = Lay::LDO;
@@ -455,18 +378,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Backward, dK/dV: one block per (bh, k tile); loops over q tiles.
+// Backward, dK/dV, float32: one block per (bh, k tile); loops over q tiles.
 // P is recomputed from LSE; dV += P^T dO, dP = dO V^T,
-// dS = P * (dP - delta) * scale, dK += dS^T Q.
+// dS = P * (dP - delta) * scale, dK += dS^T Q.  bf16/fp16: flash_dkv_sm90.cu.
 // ---------------------------------------------------------------------------
-template <typename T, int D, int MODE>
-__global__ void __launch_bounds__(Tile<T>::kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int s_q, int s_k, Lens L, bool causal,
-                     float sm_scale, Dropout dr) {
+template <int D, int MODE>
+__global__ void __launch_bounds__(Tile<float>::kThreads)
+flash_bwd_dkv_fp32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int s_q, int s_k, Lens L, bool causal,
+                          float sm_scale, Dropout dr) {
+  using T = float;
   using Lay = BwdSmem<T, D>;
   constexpr int BM = Lay::BM, LDT = Lay::LDT, LDS = Lay::LDS, LDP = Lay::LDP,
                 LDO = Lay::LDO;
@@ -630,26 +557,25 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
 template <typename T, int D, int MODE>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 float* lse, int bh, int s_q, int s_k, Lens L, bool causal,
                 float scale, Dropout dr, cudaStream_t stream) {
-  using Lay = FwdSmem<T, D>;
-  auto kernel = flash_fwd_kernel<T, D, MODE>;
-  cudaError_t err = prepare(kernel, Lay::bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid(bh, s_q / Lay::BM);
-  kernel<<<grid, Tile<T>::kThreads, Lay::bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, s_q, s_k, L, causal,
-      scale, dr);
-  return cudaGetLastError();
+  if constexpr (!std::is_same<T, float>::value) {
+    return fwd_sm90<T, D, MODE>(q, k, v, o, lse, bh, s_q, s_k, L, causal,
+                                scale, dr, stream);
+  } else {
+    using Lay = FwdSmem<T, D>;
+    auto kernel = flash_fwd_fp32_kernel<D, MODE>;
+    cudaError_t err = prepare(kernel, Lay::bytes);
+    if (err != cudaSuccess) return err;
+    dim3 grid(bh, s_q / Lay::BM);
+    kernel<<<grid, Tile<T>::kThreads, Lay::bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), lse, s_q, s_k, L,
+        causal, scale, dr);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D, int MODE>
@@ -657,17 +583,22 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
                     void* dk, void* dv, int bh, int s_q, int s_k, Lens L,
                     bool causal, float scale, Dropout dr, cudaStream_t stream) {
-  using Lay = BwdSmem<T, D>;
-  auto kernel = flash_bwd_dkv_kernel<T, D, MODE>;
-  cudaError_t err = prepare(kernel, Lay::bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid(bh, s_k / Lay::BM);
-  kernel<<<grid, Tile<T>::kThreads, Lay::bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), s_q, s_k, L, causal, scale,
-      dr);
-  return cudaGetLastError();
+  if constexpr (!std::is_same<T, float>::value) {
+    return bwd_dkv_sm90<T, D, MODE>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                    s_q, s_k, L, causal, scale, dr, stream);
+  } else {
+    using Lay = BwdSmem<T, D>;
+    auto kernel = flash_bwd_dkv_fp32_kernel<D, MODE>;
+    cudaError_t err = prepare(kernel, Lay::bytes);
+    if (err != cudaSuccess) return err;
+    dim3 grid(bh, s_k / Lay::BM);
+    kernel<<<grid, Tile<T>::kThreads, Lay::bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dk), static_cast<T*>(dv), s_q, s_k, L, causal, scale,
+        dr);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D, int MODE>
@@ -685,6 +616,32 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), s_q, s_k, L, causal, scale, dr);
   return cudaGetLastError();
+}
+
+// Registers, shared memory and spill bytes of the instance a call with these
+// template arguments launches.
+template <typename T, int D, int MODE>
+cudaError_t attrs_fwd(KernelAttrs* out) {
+  if constexpr (!std::is_same<T, float>::value)
+    return fwd_sm90_attrs<T, D, MODE>(out);
+  else
+    return kernel_attrs(flash_fwd_fp32_kernel<D, MODE>,
+                        FwdSmem<T, D>::bytes, out);
+}
+
+template <typename T, int D, int MODE>
+cudaError_t attrs_bwd_dkv(KernelAttrs* out) {
+  if constexpr (!std::is_same<T, float>::value)
+    return bwd_dkv_sm90_attrs<T, D, MODE>(out);
+  else
+    return kernel_attrs(flash_bwd_dkv_fp32_kernel<D, MODE>,
+                        BwdSmem<T, D>::bytes, out);
+}
+
+template <typename T, int D, int MODE>
+cudaError_t attrs_bwd_dq(KernelAttrs* out) {
+  return kernel_attrs(flash_bwd_dq_kernel<T, D, MODE>, DqSmem<T, D>::bytes,
+                      out);
 }
 
 // dtype codes shared with the Python wrapper.
@@ -716,6 +673,14 @@ enum DType { kFloat32 = 0, kFloat16 = 1, kBFloat16 = 2 };
       HVD_DISPATCH_TYPE(DTYPE, HEAD_DIM, kPhiloxDropout, FN, __VA_ARGS__);     \
     return cudaErrorInvalidValue;                                              \
   } while (0)
+
+cudaError_t attrs(int kernel, int dtype, int head_dim, int mode,
+                  KernelAttrs* a) {
+  if (kernel == 0) HVD_DISPATCH(dtype, head_dim, mode, attrs_fwd, a);
+  if (kernel == 1) HVD_DISPATCH(dtype, head_dim, mode, attrs_bwd_dkv, a);
+  if (kernel == 2) HVD_DISPATCH(dtype, head_dim, mode, attrs_bwd_dq, a);
+  return cudaErrorInvalidValue;
+}
 
 }  // namespace
 
@@ -754,6 +719,22 @@ int hvd_flash_bwd_dkv(int dtype, int head_dim, int mode, const void* q,
   HVD_DISPATCH(dtype, head_dim, mode, bwd_dkv, q, k, v, dout, lse, delta, dk,
                dv, bh, s_q, s_k, L, causal != 0, scale, dr,
                static_cast<cudaStream_t>(stream));
+}
+
+// Attributes of one kernel instance (kernel 0 fwd, 1 bwd_dkv, 2 bwd_dq):
+// out[0..3] = registers per thread, static shared bytes, dynamic shared
+// bytes of its launch, local (spill) bytes per thread.
+int hvd_flash_kernel_attrs(int kernel, int dtype, int head_dim, int mode,
+                           int* out) {
+  KernelAttrs a{};
+  const cudaError_t err = attrs(kernel, dtype, head_dim, mode, &a);
+  if (err == cudaSuccess) {
+    out[0] = a.regs;
+    out[1] = a.static_smem;
+    out[2] = a.dynamic_smem;
+    out[3] = a.local_bytes;
+  }
+  return err;
 }
 
 int hvd_flash_bwd_dq(int dtype, int head_dim, int mode, const void* q,

@@ -1,7 +1,9 @@
 """Flash attention with log-sum-exp outputs, on hand-written Hopper kernels.
 
 Port of ``horovod_tpu/ops/flash_attention.py``. The three Pallas TPU kernels
-become three CUDA kernels in ``csrc/flash_attention.cu``:
+become three CUDA kernels under ``csrc/`` (bf16/fp16 forward and dK/dV:
+wgmma kernels in ``flash_fwd_sm90.cu`` and ``flash_dkv_sm90.cu``; dQ and
+the float32 forward and dK/dV in ``flash_attention.cu``):
 
 - :func:`attention_fwd`     ← ``_fwd_kernel`` (online-softmax forward, O+LSE)
 - :func:`attention_bwd_dkv` ← ``_bwd_dkv_kernel`` (dK, dV per key tile)
@@ -368,6 +370,7 @@ _SIGNATURES = {
     "hvd_flash_fwd": [_I, _I, _I] + [_P] * 5 + _TAIL,
     "hvd_flash_bwd_dkv": [_I, _I, _I] + [_P] * 8 + _TAIL,
     "hvd_flash_bwd_dq": [_I, _I, _I] + [_P] * 7 + _TAIL,
+    "hvd_flash_kernel_attrs": [_I, _I, _I, _I, _P],
 }
 
 
@@ -383,6 +386,24 @@ def _library():
         lib.hvd_flash_error_string.restype = ctypes.c_char_p
         lib._hvd_typed = True
     return lib
+
+
+def kernel_attributes(kernel, dtype, head_dim, mode=""):
+    """What the CUDA kernel instance that a call of ``kernel`` ("fwd",
+    "bwd_dkv", "bwd_dq") with this dtype, head dim and dropout mode ("",
+    "mask", "philox") launches uses on the current device: registers per
+    thread, static and dynamic shared memory bytes, and local (spill) bytes
+    per thread (``cudaFuncGetAttributes``)."""
+    lib = _library()
+    out = (ctypes.c_int * 4)()
+    rc = lib.hvd_flash_kernel_attrs(_KERNELS.index(kernel),
+                                    _DTYPE_CODES[dtype], head_dim,
+                                    _MODE_CODES[mode], out)
+    if rc != 0:
+        raise RuntimeError(f"flash {kernel} attributes: "
+                           f"{lib.hvd_flash_error_string(rc).decode()}")
+    return dict(zip(("regs", "static_smem", "dynamic_smem", "local_bytes"),
+                    out))
 
 
 def _check_kernel_inputs(kind, tensors, rows, lens):

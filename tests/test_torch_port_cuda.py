@@ -10,7 +10,8 @@ only torch and the port, so it runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Tolerances: fp32 forward 2e-5 and gradients 5e-4 (the JAX package's kernel
-tests); bf16 3e-2.
+tests); bf16 3e-2; fp16 4e-3 (bf16's 3e-2 scaled by the 8x finer fp16
+mantissa).
 """
 
 import pytest
@@ -148,3 +149,58 @@ def test_philox_mask_on_the_card_matches_the_cpu(cuda):
     on_card = tfa.philox_keep_mask(5, 4, 128, 256, 0.1, cuda).cpu()
     assert torch.equal(on_card, tfa.philox_keep_mask(5, 4, 128, 256, 0.1,
                                                      "cpu"))
+
+
+def _drop_kwargs(mode, shape, rate, device):
+    """The flash call's dropout arguments in ``mode`` and the keep-mask the
+    dense reference is fed."""
+    if mode == "none":
+        return {}, None
+    if mode == "mask":
+        gen = torch.Generator(device=device).manual_seed(1)
+        mask = torch.rand(shape[:3] + (shape[2],), generator=gen,
+                          device=device) < 1 - rate
+        return dict(dropout_mask=mask, dropout_rate=rate), mask
+    return (dict(dropout_seed=11, dropout_rate=rate),
+            _padded_philox_mask(11, shape, rate, device))
+
+
+def _check_against_reference(shape, dtype, kw, mode, tol, device):
+    rate = 0.1
+    q, k, v, g = _inputs(shape, dtype, device)
+    drop, mask = _drop_kwargs(mode, shape, rate, device)
+    tfa.reset_launches()
+    got, got_g = _grads(lambda q, k, v: tfa.flash_attention(
+        q, k, v, **drop, **kw), (q, k, v), g)
+    want, want_g = _grads(
+        lambda q, k, v: tfa.reference_attention(
+            q.float(), k.float(), v.float(), dropout_mask=mask,
+            dropout_rate=rate if mask is not None else 0.0, **kw),
+        (q, k, v), g)
+    torch.cuda.synchronize()
+    sfx = "" if mode == "none" else f"_{mode}"
+    assert {n: c for n, c in tfa.LAUNCHES.items() if c} == \
+        {f"fwd{sfx}": 1, f"bwd_dkv{sfx}": 1, f"bwd_dq{sfx}": 1}
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    for a, b in zip(got_g, want_g):
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("mode", ["none", "mask", "philox"])
+def test_bert_shape_in_each_dropout_mode(cuda, mode):
+    """BERT-large's attention: 16 heads of 64 over 512 keys, no causal
+    mask, bf16."""
+    _check_against_reference((1, 16, 512, 64), torch.bfloat16,
+                             dict(causal=False), mode, 3e-2, cuda)
+
+
+@pytest.mark.parametrize("mode", ["none", "mask", "philox"])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2),
+                                       (torch.float16, 4e-3)])
+def test_head_dim_128_causal_on_the_sixteen_bit_kernels(cuda, dtype, tol,
+                                                        mode):
+    """Head dim 128, where dK/dV works in 32-query sub-tiles; a ragged
+    sequence with offsets (partial tiles, rows that see no key)."""
+    _check_against_reference((1, 2, 300, 128), dtype,
+                             dict(causal=True, q_offset=32, k_offset=48,
+                                  kv_len=250), mode, tol, cuda)
