@@ -64,7 +64,7 @@ _TPU_KERNEL = {"fwd": "horovod_tpu/ops/flash_attention.py:165",
 # Source of the instance the timed (bf16) shapes run.
 _SOURCE = {"fwd": "horovod_tpu_torch/csrc/flash_fwd_sm90.cu",
            "bwd_dkv": "horovod_tpu_torch/csrc/flash_dkv_sm90.cu",
-           "bwd_dq": "horovod_tpu_torch/csrc/flash_attention.cu"}
+           "bwd_dq": "horovod_tpu_torch/csrc/flash_dq_sm90.cu"}
 _SDPA = {"fwd": "sdpa flash forward",
          "bwd_dkv": "sdpa flash backward (dQ, dK, dV in one call)",
          "bwd_dq": "sdpa flash backward (dQ, dK, dV in one call)"}
@@ -372,7 +372,8 @@ def compare(name, got, want, tol):
 def kernel_phase(fa):
     """Each kernel in each dropout mode against its plain version at the
     main paths' shapes and at ragged cases; times at the main paths'
-    shapes (the TransformerLM's for no dropout, BERT's for dropout)."""
+    shapes (the TransformerLM's for no dropout, BERT's for dropout), each
+    kernel and the port's whole backward beside SDPA's."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -499,6 +500,15 @@ def kernel_phase(fa):
             log(f"  {name:<14} kernel {r['ms']:.4f} ms | plain "
                 f"{r['plain_ms']:.3f} ms | bound {b_ms:.4f} ms ({b_by}) | "
                 f"{KERNELS[name][1]} {r['library_ms']:.4f} ms")
+
+        # the port's whole backward as autograd runs it: delta, dK/dV, dQ
+        leaves = [x.detach().requires_grad_() for x in (qp, kp, vp)]
+        out = fa._FlashAttention.apply(*leaves, lens, scale, causal, drop)[0]
+        bwd_ms = time_ms(lambda: torch.autograd.grad(
+            out, leaves, dop, retain_graph=True), 20, flush_buf)
+        log(f"  {'backward' + sfx:<14} port {bwd_ms:.4f} ms (delta rowsum + "
+            f"dK/dV + dQ) | {KERNELS['bwd_dq' + sfx][1]} "
+            f"{lib['bwd_dq']:.4f} ms")
     return results
 
 
@@ -521,8 +531,7 @@ def attributes_phase(fa):
                         f"regs {a['regs']:>3}  smem {a['static_smem']} + "
                         f"{a['dynamic_smem']:>6}  local {a['local_bytes']}")
     spills = [key for key, a in table.items() if a["local_bytes"]
-              and key[0] in ("fwd", "bwd_dkv") and key[1] != "float32"
-              and key[2] == 64]
+              and key[1] != "float32" and key[2] == 64]
     if spills:
         fail(f"the wgmma kernels spill to local memory at head dim 64: "
              f"{spills}")

@@ -25,7 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: Translation units of each library; the first holds its C entry points.
 LIBRARIES = {
     "flash_attention": ("flash_attention.cu", "flash_fwd_sm90.cu",
-                        "flash_dkv_sm90.cu"),
+                        "flash_dkv_sm90.cu", "flash_dq_sm90.cu"),
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,8 @@
 // What every flash-attention translation unit shares: the masking rules of
 // the TPU kernels (global-coordinate causal mask, key padding, tile skip),
 // the dropout arguments and the Philox4x32-10 generator, and the entry points
-// of the Hopper kernels (flash_fwd_sm90.cu, flash_dkv_sm90.cu) that
-// flash_attention.cu dispatches to.
+// of the Hopper kernels (flash_fwd_sm90.cu, flash_dkv_sm90.cu,
+// flash_dq_sm90.cu) that flash_attention.cu dispatches to.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -13,25 +13,6 @@
 namespace hvd_flash {
 
 constexpr float kNegInf = -1e30f;  // the TPU kernels' _NEG_INF
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 struct Lens {
   int q_off;
@@ -116,7 +97,7 @@ cudaError_t kernel_attrs(Kernel kernel, size_t dynamic_smem, KernelAttrs* out) {
 
 // The Hopper kernels for 16-bit inputs (T = __nv_bfloat16 or __half,
 // D = 64 or 128, MODE an enum Mode), defined and instantiated in
-// flash_fwd_sm90.cu and flash_dkv_sm90.cu.
+// flash_fwd_sm90.cu, flash_dkv_sm90.cu and flash_dq_sm90.cu.
 template <typename T, int D, int MODE>
 cudaError_t fwd_sm90(const void* q, const void* k, const void* v, void* o,
                      float* lse, int bh, int s_q, int s_k, Lens L, bool causal,
@@ -134,5 +115,15 @@ cudaError_t bwd_dkv_sm90(const void* q, const void* k, const void* v,
 
 template <typename T, int D, int MODE>
 cudaError_t bwd_dkv_sm90_attrs(KernelAttrs* out);
+
+template <typename T, int D, int MODE>
+cudaError_t bwd_dq_sm90(const void* q, const void* k, const void* v,
+                        const void* dout, const float* lse, const float* delta,
+                        void* dq, int bh, int s_q, int s_k, Lens L,
+                        bool causal, float scale, Dropout dr,
+                        cudaStream_t stream);
+
+template <typename T, int D, int MODE>
+cudaError_t bwd_dq_sm90_attrs(KernelAttrs* out);
 
 }  // namespace hvd_flash

@@ -1,9 +1,10 @@
 """Flash attention with log-sum-exp outputs, on hand-written Hopper kernels.
 
 Port of ``horovod_tpu/ops/flash_attention.py``. The three Pallas TPU kernels
-become three CUDA kernels under ``csrc/`` (bf16/fp16 forward and dK/dV:
-wgmma kernels in ``flash_fwd_sm90.cu`` and ``flash_dkv_sm90.cu``; dQ and
-the float32 forward and dK/dV in ``flash_attention.cu``):
+become three CUDA kernels under ``csrc/`` (bf16/fp16: wgmma kernels in
+``flash_fwd_sm90.cu``, ``flash_dkv_sm90.cu`` and ``flash_dq_sm90.cu``;
+float32: CUDA-core kernels in ``flash_attention.cu``, beside the C entry
+points):
 
 - :func:`attention_fwd`     ← ``_fwd_kernel`` (online-softmax forward, O+LSE)
 - :func:`attention_bwd_dkv` ← ``_bwd_dkv_kernel`` (dK, dV per key tile)

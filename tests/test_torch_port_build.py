@@ -113,22 +113,38 @@ def test_ctypes_signatures_match_the_c_entry_points(name):
         assert ("*" in param) == (argtype is tfa._P), (name, param)
 
 
-def test_sixteen_bit_forward_and_dkv_reach_only_the_wgmma_kernels():
-    """The CUDA-core forward and dK/dV kernels take float32 only, and the
-    16-bit instances are the wgmma ones."""
+@pytest.mark.parametrize("cuda_core,unit,macro", [
+    ("flash_fwd_fp32_kernel", "flash_fwd_sm90.cu", "HVD_FWD_SM90"),
+    ("flash_bwd_dkv_fp32_kernel", "flash_dkv_sm90.cu", "HVD_DKV_SM90"),
+    ("flash_bwd_dq_fp32_kernel", "flash_dq_sm90.cu", "HVD_DQ_SM90")])
+def test_sixteen_bit_forward_and_dkv_reach_only_the_wgmma_kernels(
+        cuda_core, unit, macro):
+    """Each kernel's CUDA-core version (forward, dK/dV, dQ) takes float32
+    only, and its 16-bit instances are the wgmma ones of a unit that the
+    library builds, in bf16 and fp16, at head dims 64 and 128, in all three
+    dropout modes."""
     units = {u.name: u.read_text()
              for u in _build.sources("flash_attention")}
     main = units["flash_attention.cu"]
-    for kernel in ("flash_fwd_fp32_kernel", "flash_bwd_dkv_fp32_kernel"):
-        head = main[main.index(f"{kernel}("):]
-        params = head[:head.index(")")]
-        assert "const float* __restrict__ q" in params
-        assert "template <int D, int MODE>" in main[:main.index(
-            f"{kernel}(")].rsplit("// ---", 1)[-1]
-    for unit in ("flash_fwd_sm90.cu", "flash_dkv_sm90.cu"):
-        text = units[unit] + _build.CSRC.joinpath(
-            "flash_sm90.cuh").read_text()
-        assert "wgmma.mma_async" in text
-        for t in ("__nv_bfloat16", "__half"):
-            for d in (64, 128):
-                assert f"({t}, {d})" in units[unit]
+    head = main[main.index(f"{cuda_core}("):]
+    params = head[:head.index(")")]
+    assert "const float* __restrict__ q" in params
+    assert "const __" not in params
+    assert "template <int D, int MODE>" in main[:main.index(
+        f"{cuda_core}(")].rsplit("// ---", 1)[-1]
+    assert unit in units
+    text = units[unit] + _build.CSRC.joinpath("flash_sm90.cuh").read_text()
+    assert "wgmma.mma_async" in text
+    assert (f"#define {macro}_MODES(T, D) \\\n  {macro}(T, D, 0) "
+            f"{macro}(T, D, 1) {macro}(T, D, 2)") in units[unit]
+    for t in ("__nv_bfloat16", "__half"):
+        for d in (64, 128):
+            assert f"{macro}_MODES({t}, {d})" in units[unit]
+
+
+def test_no_wmma_code_is_left_in_the_port():
+    """Every tensor-core product of the port is a wgmma kernel: no source
+    under csrc/ includes the wmma API or calls it."""
+    for path in sorted(_build.CSRC.glob("*.cu*")):
+        text = path.read_text()
+        assert "<mma.h>" not in text and "wmma::" not in text, path.name

@@ -195,6 +195,44 @@ def test_bert_shape_in_each_dropout_mode(cuda, mode):
 
 
 @pytest.mark.parametrize("mode", ["none", "mask", "philox"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("lens", [(80, 0, 512), (0, 100, 480)])
+def test_causal_dq_with_offsets_matches_its_plain_version(cuda, lens, d,
+                                                          mode):
+    """The dQ kernel starts the heaviest q tiles first on causal grids: with
+    a q offset every q tile sees another number of k tiles (and with a k
+    offset the first tiles see none, dQ = 0), so a tile written to the wrong
+    rows, or a k range cut at the wrong tile, shows. Held to the plain
+    version on the same LSE and delta, bf16, at ``chip_smoke.py``'s bf16
+    tolerance (one ulp of the output plus 1e-2)."""
+    bh, s = 4, 512
+    q, k, v, do = _inputs((bh, s, d), torch.bfloat16, cuda, seed=3)
+    drop = None
+    if mode == "mask":
+        gen = torch.Generator(device=cuda).manual_seed(2)
+        drop = tfa.Dropout(0.1, mask=(torch.rand(
+            bh, s, s, generator=gen, device=cuda) >= 0.1).to(torch.uint8))
+    elif mode == "philox":
+        drop = tfa.Dropout(0.1, seed=21)
+    keep = None if drop is None else drop.multiplier(bh, s, s, cuda)
+    scale = d ** -0.5
+    o, lse = tfa.attention_fwd_plain(q, k, v, lens, scale, True, keep)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, lens, scale, True)
+    tfa.reset_launches()
+    got = tfa.attention_bwd_dq(*args, drop)
+    want = tfa.attention_bwd_dq_plain(*args, keep)
+    torch.cuda.synchronize()
+    sfx = "" if mode == "none" else f"_{mode}"
+    assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {f"bwd_dq{sfx}": 1}
+    dead = max(0, lens[1] - lens[0])    # rows that see no key
+    if dead:
+        assert got[:, :dead].abs().max().item() == 0.0
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                               rtol=2 ** -6)
+
+
+@pytest.mark.parametrize("mode", ["none", "mask", "philox"])
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 3e-2),
                                        (torch.float16, 4e-3)])
 def test_head_dim_128_causal_on_the_sixteen_bit_kernels(cuda, dtype, tol,
