@@ -960,23 +960,35 @@ def device_kernels(run):
             and e.self_device_time_total > 0]
 
 
-def profile_step(run, step_ms, label="step"):
+ATTENTION_FAMILIES = {"flash attention kernels": ("flash_",),
+                      "matmul (cuBLAS/CUTLASS)": ("gemm", "cutlass", "xmma",
+                                                  "sm90_", "nvjet")}
+# Checked in order: cuDNN's BatchNorm kernels also carry "cudnn".
+RESNET_FAMILIES = {"BN": ("batch_norm", "batchnorm", "bn_fw", "bn_bw",
+                          "bn_bp"),
+                   "optimizer": ("multi_tensor",),
+                   "convolutions and matmuls": (
+                       "conv", "cudnn", "xmma", "implicit", "dgrad",
+                       "wgrad", "fprop", "gemm", "cutlass", "sm90_",
+                       "nvjet")}
+
+
+def profile_step(run, step_ms, label="step", families=ATTENTION_FAMILIES,
+                 other="other"):
     """Device time of one more train step by kernel family (after the
     counted steps), and the device's idle share of the unprofiled median
     step time ``step_ms`` of the host phase (the profiler itself slows the
-    host)."""
+    host). A kernel goes to the first family one of whose keys its name
+    contains, else to ``other``."""
     kernels = device_kernels(run)
     busy = sum(ms for _, ms, _ in kernels)
     if busy == 0:
         log("[profile] the profiler saw no device time: not measured")
         return
-    families = {"flash attention kernels": ("flash_",),
-                "matmul (cuBLAS/CUTLASS)": ("gemm", "cutlass", "xmma",
-                                            "sm90_", "nvjet")}
-    split = dict.fromkeys(list(families) + ["other"], 0.0)
+    split = dict.fromkeys(list(families) + [other], 0.0)
     for name, ms, _ in kernels:
         fam = next((f for f, keys in families.items()
-                    if any(k in name for k in keys)), "other")
+                    if any(k in name.lower() for k in keys)), other)
         split[fam] += ms
     log(f"[profile] one {label}: device busy {busy:.2f} ms of the "
         f"{step_ms:.1f} ms median step: idle share "
@@ -987,6 +999,190 @@ def profile_step(run, step_ms, label="step"):
         log(f"  {ms:8.2f} ms  x{count:<4} {name[:90]}")
 
 
+RESNET_BATCH = 256     # per GPU
+RESNET_STEPS = 5
+# bf16 against fp32 logits of the same ResNet-50 at initialisation, by
+# relative Frobenius error: bf16 rounds each conv's input and kernel to 8
+# bits of mantissa (unit roundoff 2^-9); at initialisation the logits pass
+# the stem, the four projection convs and the head (each block's last
+# BatchNorm has scale 0), ~6 roundings of 2 * 2^-9 each: ~1e-2.
+RESNET_CHECK_TOL = 3e-2
+
+
+def train_flops_per_image(model, image_size=224):
+    """FLOPs of one trained image: 2 x the multiply-adds of the forward's
+    convolutions and dense head, counted from their shapes, x 3 for the
+    forward and the backward's input and weight gradients. BatchNorm,
+    ReLU, pooling and the update are not counted."""
+    flops = 0
+
+    def count(mod, inp, out):
+        nonlocal flops
+        if isinstance(mod, nn.Conv2d):
+            k = mod.kernel_size[0] * mod.kernel_size[1] * mod.in_channels
+            flops += 2 * k * out[0].numel()
+        else:
+            flops += 2 * mod.in_features * mod.out_features
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (nn.Conv2d, nn.Linear))]
+    was_training = model.training
+    try:
+        model.eval()
+        with torch.no_grad():
+            model(torch.zeros(1, 3, image_size, image_size,
+                              device=next(model.parameters()).device))
+    finally:
+        model.train(was_training)
+        for h in hooks:
+            h.remove()
+    return 3 * flops
+
+
+def api_phase(hvd_torch):
+    """Horovod's torch API on CUDA tensors at size 1: an async in-place
+    allreduce polled and synchronized, a grouped one, alltoall with splits,
+    reducescatter and join, each checked for values, dtype and device,
+    with the host allowed to wait for nothing."""
+    hvd = hvd_torch
+    x = torch.arange(8, device="cuda", dtype=torch.bfloat16)
+    xs = [torch.ones(3, device="cuda"),
+          torch.arange(6, device="cuda", dtype=torch.float32)]
+    splits = torch.tensor([6], dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h = hvd.allreduce_async_(x, op=hvd.Sum, prescale_factor=2.0)
+        polled = hvd.poll(h)
+        out = hvd.synchronize(h)
+        grouped = hvd.synchronize(hvd.grouped_allreduce_async(
+            xs, op=hvd.Average, postscale_factor=3.0))
+        a2a, recv = hvd.alltoall(xs[1], splits=splits)
+        rs = hvd.reducescatter(xs[0])
+        joined = hvd.join()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    checks = {
+        "allreduce_async_ poll": polled is True,
+        "allreduce_async_ in place": (
+            out is x and x.dtype == torch.bfloat16 and x.device.type == "cuda"
+            and torch.equal(x, 2 * torch.arange(8, device="cuda",
+                                                dtype=torch.bfloat16))),
+        "grouped_allreduce_async": all(
+            g.device == t.device and g.dtype == t.dtype
+            and torch.equal(g, 3 * t) for g, t in zip(grouped, xs)),
+        "alltoall splits": (torch.equal(a2a, xs[1])
+                            and a2a.device.type == "cuda"
+                            and recv.dtype == torch.int32
+                            and recv.tolist() == [6]),
+        "reducescatter": rs.device.type == "cuda" and torch.equal(rs, xs[0]),
+        "join": joined == -1,
+    }
+    log("[api] " + ", ".join(f"{k}: {'ok' if v else 'FAILED'}"
+                             for k, v in checks.items()))
+    if not all(checks.values()):
+        fail(f"the torch API at size 1 on CUDA tensors: {checks}")
+
+
+def resnet_check(models):
+    """The bf16 ResNet-50 against the same weights in fp32, train-mode
+    logits at initialisation, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.rand((16, 3, 224, 224), device="cuda", generator=gen)
+    logits = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen.manual_seed(0)
+        model = models.ResNet50(num_classes=1000, dtype=dtype,
+                                device="cuda", generator=gen)
+        model = model.to(memory_format=torch.channels_last)
+        with torch.no_grad():
+            logits[dtype] = model(x.to(memory_format=torch.channels_last))
+    got, want = logits[torch.bfloat16], logits[torch.float32]
+    fro = _rel_fro([got], [want])
+    finite = bool(torch.isfinite(got).all())
+    log(f"[resnet-check] bf16 vs fp32 ResNet-50 logits at initialisation "
+        f"(batch 16, 224x224, train mode): rel_fro {fro:.3e} (limit "
+        f"{RESNET_CHECK_TOL:.0e}), max_abs_err "
+        f"{(got - want).abs().max().item():.3e}, max|logit| "
+        f"{want.abs().max().item():.3g}, shape {tuple(got.shape)}")
+    if not (finite and got.shape == (16, 1000) and fro <= RESNET_CHECK_TOL):
+        fail("bf16 ResNet-50 logits disagree with fp32")
+
+
+def resnet_phase(hvd_torch, models, train):
+    """Horovod's PyTorch recipe on ResNet-50 (1000 classes, 224x224, bf16
+    compute, fp32 parameters, channels_last), batch 256 per GPU, random
+    images and labels from seed 0, SGD(lr=0.1) as bench.py trains it:
+    broadcast the parameters and optimizer state, wrap the optimizer,
+    train RESNET_STEPS steps through make_train_step(has_aux=True)."""
+    hvd = hvd_torch
+    hvd.init()
+    torch.backends.cudnn.benchmark = True
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = models.ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                            device="cuda", generator=gen)
+    model = model.to(memory_format=torch.channels_last)
+    n_params = sum(p.numel() for p in model.parameters())
+    flops = train_flops_per_image(model)
+    x = torch.rand((RESNET_BATCH, 3, 224, 224), device="cuda",
+                   generator=gen).to(torch.bfloat16).to(
+                       memory_format=torch.channels_last)
+    y = torch.randint(0, 1000, (RESNET_BATCH,), device="cuda",
+                      generator=gen)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    opt = hvd.DistributedOptimizer(opt,
+                                   named_parameters=model.named_parameters())
+
+    def loss_fn(m, batch):
+        bx, by = batch
+        return F.cross_entropy(m(bx), by)
+    step = train.make_train_step(loss_fn, opt, has_aux=True)
+    log(f"[resnet] ResNet-50 {n_params / 1e6:.2f}M params, batch "
+        f"{RESNET_BATCH} x 3 x 224 x 224 bf16 channels_last, SGD lr 0.1, "
+        f"{RESNET_STEPS} steps through horovod_tpu_torch.torch "
+        f"(size {hvd.size()}); {flops / 1e9:.3f} GFLOP per trained image "
+        "(3 x 2 x conv and dense multiply-adds, from their shapes)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        loss = step(model, (x, y)).item()   # .item() synchronizes
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        log(f"  step {i + 1}: loss {loss:.6f}  {times[-1]:.1f} ms")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"[resnet] non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"[resnet] loss did not descend: {losses}")
+    bn = model.bn_init
+    if int(bn.num_batches_tracked) != RESNET_STEPS or not bool(
+            torch.isfinite(bn.running_var).all()):
+        fail("[resnet] BatchNorm statistics were not tracked")
+
+    def rates(step_ms):
+        img_s = RESNET_BATCH / (step_ms / 1e3)
+        return (f"{img_s:.1f} img/s per GPU; MFU "
+                f"{img_s * flops / H100_BF16_FLOPS:.4f} of "
+                f"{H100_BF16_FLOPS / 1e12:.0f} TFLOP/s")
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    log(f"[resnet] step ms (median of steps 2..{RESNET_STEPS}) "
+        f"{steady:.1f}, range {min(times[1:]):.1f}..{max(times[1:]):.1f}; "
+        f"first step {times[0]:.1f} ms; {rates(steady)}; peak memory "
+        f"{peak:.2f} GiB; losses {[round(v, 6) for v in losses]}")
+    median, syncs = host_phase(lambda: step(model, (x, y)),
+                               label="resnet step")
+    if syncs:
+        fail(f"[host] {syncs} calls inside the resnet steps made the host "
+             "wait for the device")
+    log(f"[host] resnet step at the median: {rates(median)}")
+    profile_step(lambda: step(model, (x, y)).item(), median,
+                 label="resnet step", families=RESNET_FAMILIES,
+                 other="elementwise and other")
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -995,7 +1191,7 @@ def main():
              "CUDA device")
     import horovod_tpu_torch as hvd
     import horovod_tpu_torch.torch as hvd_torch
-    from horovod_tpu_torch import _build, models
+    from horovod_tpu_torch import _build, models, train
     from horovod_tpu_torch.ops import flash_attention as fa
     for mod in list(sys.modules):
         if mod == "jax" or mod.startswith(("jax.", "horovod_tpu.")) \
@@ -1024,6 +1220,11 @@ def main():
     bert_launches = bert_phase(hvd_torch, fa)
     launches.update({n: c for n, c in bert_launches.items()
                      if n.endswith(("_mask", "_philox"))})
+    torch.cuda.empty_cache()
+    api_phase(hvd_torch)
+    resnet_check(models)
+    resnet_phase(hvd_torch, models, train)
+    torch.cuda.empty_cache()
     log("[launches] " + ", ".join(f"{n}={c}" for n, c in launches.items()))
     if set(launches) != set(KERNELS) or not all(launches.values()):
         fail(f"a kernel was not launched on its path: {launches}")

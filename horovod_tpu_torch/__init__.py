@@ -1,11 +1,12 @@
 """horovod_tpu_torch: the PyTorch/CUDA port of horovod_tpu.
 
 Same API shape as the JAX package, written in PyTorch for NVIDIA Hopper:
-``init()`` picks ``cuda:<local_rank>``, eager collectives run over
-``torch.distributed``, ``DistributedOptimizer`` wraps a
-``torch.optim.Optimizer``, and the attention kernels are hand-written CUDA
-(``ops/flash_attention.py``, ``csrc/flash_attention.cu``). The package
-imports neither JAX nor anything of ``horovod_tpu``.
+``init()`` picks ``cuda:<local_rank>``, eager and async collectives run
+over ``torch.distributed`` on any process set, ``DistributedOptimizer``
+wraps a ``torch.optim.Optimizer``, and the attention kernels are
+hand-written CUDA (``ops/flash_attention.py``, ``csrc/``). Horovod's
+PyTorch API is ``horovod_tpu_torch.torch``. The package imports neither JAX
+nor anything of ``horovod_tpu``.
 """
 
 from .basics import (cross_rank, cross_size, device, init, is_initialized,
@@ -14,10 +15,16 @@ from .exceptions import HorovodInternalError, NotInitializedError
 from .functions import (allgather_object, broadcast_object,
                         broadcast_optimizer_state, broadcast_parameters,
                         broadcast_variables)
-from .ops.collectives import (allgather, allreduce, allreduce_, barrier,
-                              broadcast, broadcast_, grouped_allreduce,
-                              grouped_allreduce_)
+from .ops.collectives import (
+    allgather, allgather_async, allreduce, allreduce_, allreduce_async,
+    allreduce_async_, alltoall, alltoall_async, barrier, broadcast,
+    broadcast_, broadcast_async, broadcast_async_, grouped_allgather,
+    grouped_allgather_async, grouped_allreduce, grouped_allreduce_,
+    grouped_allreduce_async, grouped_allreduce_async_, grouped_reducescatter,
+    grouped_reducescatter_async, join, poll, reducescatter,
+    reducescatter_async, synchronize)
 from .ops.reduce_ops import Adasum, Average, Max, Min, Product, Sum
-from .process_sets import ProcessSet, global_process_set
+from .process_sets import (ProcessSet, add_process_set, global_process_set,
+                           process_set_by_id, remove_process_set)
 from .train import DistributedOptimizer, make_train_step
 from .version import __version__

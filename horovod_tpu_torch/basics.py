@@ -46,12 +46,13 @@ class Topology:
 
 
 class Runtime:
-    """Owns topology, device and backend."""
+    """Owns topology, device, backend and the process-set table."""
 
     def __init__(self, topology, device, backend):
         self.topology = topology
         self.device = device
         self.backend = backend
+        self.process_set_table = None   # attached by process_sets._setup
 
 
 _runtime = None
@@ -69,10 +70,13 @@ def _pick_device(device, topology):
     return torch.device("cuda", topology.local_rank)
 
 
-def init(device=None):
+def init(comm=None, process_sets=None, device=None):
     """Initialize the runtime (idempotent; reference: horovod_init).
 
     Args:
+      comm: ignored; accepted for the reference's signature.
+      process_sets: ``ProcessSet`` objects to register at startup, besides
+        the global set (every rank passes the same list).
       device: where this rank computes. Default ``cuda:<local_rank>``;
         ``"cpu"`` runs on the CPU (gloo backend when the job has several
         ranks).
@@ -99,11 +103,14 @@ def init(device=None):
             backend = TorchDistBackend(topology, dev)
         else:
             backend = LoopbackBackend()
-        from . import process_sets
-        process_sets._setup(topology.size)
+        from . import process_sets as ps_mod
+        runtime = Runtime(topology, dev, backend)
+        ps_mod._setup(runtime)
+        for ps in process_sets or ():
+            runtime.process_set_table.register(ps)
         get_logger().info("init: rank=%d size=%d device=%s backend=%s",
                           topology.rank, topology.size, dev, backend.name)
-        _runtime = Runtime(topology, dev, backend)
+        _runtime = runtime
         return _runtime
 
 
@@ -113,9 +120,9 @@ def shutdown():
     with _init_lock:
         if _runtime is None:
             return
-        _runtime.backend.close()
         from . import process_sets
-        process_sets._teardown()
+        process_sets._teardown(_runtime)
+        _runtime.backend.close()
         _runtime = None
 
 
@@ -159,3 +166,55 @@ def cross_size():
 def device():
     """The device this rank computes on."""
     return runtime().device
+
+
+def is_homogeneous():
+    """True when every host runs the same number of ranks (reference:
+    horovod_is_homogeneous)."""
+    topo = runtime().topology
+    return topo.size == topo.local_size * topo.cross_size
+
+
+# What this build of torch can run on (reference: horovod/common/basics.py
+# *_built / *_enabled). The port's data plane is torch.distributed.
+def mpi_built():
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_mpi_available()
+
+
+def mpi_enabled():
+    return False
+
+
+def mpi_threads_supported():
+    return False
+
+
+def gloo_built():
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_gloo_available()
+
+
+def gloo_enabled():
+    return runtime().backend.name == "gloo"
+
+
+def nccl_built():
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_nccl_available()
+
+
+def ddl_built():
+    return False
+
+
+def ccl_built():
+    return False
+
+
+def cuda_built():
+    return torch.version.cuda is not None
+
+
+def rocm_built():
+    return torch.version.hip is not None

@@ -12,7 +12,8 @@ import pickle
 import torch
 
 from . import basics
-from .ops.collectives import allgather, broadcast, broadcast_
+from .ops.collectives import (allgather, broadcast, broadcast_,
+                              broadcast_async_)
 from .process_sets import global_process_set
 
 
@@ -29,7 +30,7 @@ def _from_bytes_tensor(t):
 
 def broadcast_object(obj, root_rank=0, name=None,
                      process_set=global_process_set):
-    """``root_rank``'s ``obj`` on every rank."""
+    """``root_rank``'s ``obj`` on every rank of the set."""
     dev = basics.device()
     if basics.rank() == root_rank:
         payload = _to_bytes_tensor(obj)
@@ -46,7 +47,7 @@ def broadcast_object(obj, root_rank=0, name=None,
 
 
 def allgather_object(obj, name=None, process_set=global_process_set):
-    """Every rank's ``obj``, as a list in rank order."""
+    """Every member's ``obj``, as a list in the set's rank order."""
     payload = _to_bytes_tensor(obj)
     sizes = allgather(torch.tensor([payload.numel()], dtype=torch.int64,
                                    device=payload.device),
@@ -61,13 +62,17 @@ def allgather_object(obj, name=None, process_set=global_process_set):
 
 def broadcast_parameters(params, root_rank=0, process_set=global_process_set):
     """Overwrite every tensor of ``params`` with ``root_rank``'s value, in
-    place. ``params`` is a ``state_dict()``, a mapping of names to tensors,
-    or an iterable of ``(name, tensor)`` pairs such as
-    ``model.named_parameters()``. Returns ``params``."""
+    place, on every rank of the set. ``params`` is a ``state_dict()``, a
+    mapping of names to tensors, or an iterable of ``(name, tensor)`` pairs
+    such as ``model.named_parameters()``. Every broadcast is launched
+    before the first is waited for. Returns ``params``."""
     items = params.items() if hasattr(params, "items") else params
-    for _, tensor in sorted(items, key=lambda kv: kv[0]):
-        # detach() shares storage: the broadcast lands in the parameter.
-        broadcast_(tensor.detach(), root_rank, process_set=process_set)
+    # detach() shares storage: the broadcast lands in the parameter.
+    handles = [broadcast_async_(tensor.detach(), root_rank,
+                                process_set=process_set)
+               for _, tensor in sorted(items, key=lambda kv: kv[0])]
+    for h in handles:
+        h.wait()
     return params
 
 

@@ -1,9 +1,14 @@
-"""Process sets (port of ``horovod_tpu/process_sets.py``).
+"""Process sets: concurrent sub-communicators (port of
+``horovod_tpu/process_sets.py``; reference: horovod/common/process_sets.py).
 
-This slice has the global set only: every collective runs over all ranks.
-Sub-communicators (``add_process_set`` and friends) come with the
-Coordinator in a later slice.
+Every rank of the job registers the same sets in the same order
+(``add_process_set`` is collective, as in the reference): each set gets an
+id from the runtime's table and its own ``torch.distributed`` group. A
+collective on a set runs among its members only; a rank outside the set
+that calls it gets an error, as from the JAX package's native core.
 """
+
+import threading
 
 
 class ProcessSet:
@@ -48,21 +53,93 @@ class ProcessSet:
                 f"ranks={self.ranks})")
 
 
+class _ProcessSetTable:
+    """Id-indexed registry of the live sets (reference:
+    horovod/common/process_set.h:89-171)."""
+
+    def __init__(self, size, backend):
+        self._lock = threading.Lock()
+        self._by_id = {}
+        self._next_id = 0
+        self._size = size
+        self._backend = backend
+
+    def register(self, ps):
+        with self._lock:
+            for existing in self._by_id.values():
+                if existing.ranks == ps.ranks:
+                    raise ValueError(
+                        f"A process set with ranks {ps.ranks} already "
+                        f"exists (id={existing.process_set_id})")
+            for r in ps.ranks:
+                if not 0 <= r < self._size:
+                    raise ValueError(f"Rank {r} in process set out of range "
+                                     f"[0, {self._size})")
+            ps.process_set_id = self._next_id
+            self._next_id += 1
+            self._backend.add_process_set(ps)
+            self._by_id[ps.process_set_id] = ps
+            return ps
+
+    def remove(self, ps):
+        with self._lock:
+            if ps.process_set_id is None:
+                return
+            if ps.process_set_id == 0:
+                raise ValueError("Cannot remove the global process set")
+            self._by_id.pop(ps.process_set_id, None)
+            self._backend.remove_process_set(ps)
+            ps.process_set_id = None
+
+    def get(self, set_id):
+        with self._lock:
+            return self._by_id.get(set_id)
+
+    def all(self):
+        with self._lock:
+            return list(self._by_id.values())
+
+
 global_process_set = ProcessSet([])
 
 
-def _setup(size):
-    """Materialize the global set over ``size`` ranks (called by init)."""
-    global_process_set.ranks = list(range(size))
-    global_process_set.process_set_id = 0
+def _setup(runtime):
+    """Build the runtime's table and register the global set over every
+    rank (called by init)."""
+    runtime.process_set_table = _ProcessSetTable(runtime.topology.size,
+                                                 runtime.backend)
+    global_process_set.ranks = list(range(runtime.topology.size))
+    runtime.process_set_table.register(global_process_set)
 
 
-def _teardown():
-    global_process_set.process_set_id = None
+def _teardown(runtime):
+    """Invalidate every registered set, so that a later init() registers
+    them again against the fresh runtime (called by shutdown)."""
+    for ps in runtime.process_set_table.all():
+        ps.process_set_id = None
 
 
-def check_global(process_set, what):
-    if process_set is not global_process_set:
-        raise NotImplementedError(
-            f"{what}: only the global process set is ported yet (ROADMAP "
-            "queue A, item 8: Coordinator and process sets)")
+def add_process_set(process_set):
+    """Register a set of ranks after init; every rank calls this with the
+    same ranks, in the same order (reference:
+    horovod/common/process_sets.py:123). Returns the registered set."""
+    from . import basics
+    if not isinstance(process_set, ProcessSet):
+        process_set = ProcessSet(process_set)
+    return basics.runtime().process_set_table.register(process_set)
+
+
+def remove_process_set(process_set):
+    """Remove a registered set (reference:
+    horovod/common/process_sets.py:145)."""
+    from . import basics
+    basics.runtime().process_set_table.remove(process_set)
+    return True
+
+
+def process_set_by_id(set_id):
+    from . import basics
+    ps = basics.runtime().process_set_table.get(set_id)
+    if ps is None:
+        raise ValueError(f"No process set with id {set_id}")
+    return ps

@@ -1,15 +1,415 @@
-"""``horovod_tpu_torch.torch``: the ``horovod_tpu.torch`` namespace that user
-scripts import as ``hvd`` (``examples/pytorch_bert_benchmark.py``).
+"""``horovod_tpu_torch.torch``: Horovod's PyTorch API, the namespace that
+user scripts import as ``hvd`` (port of ``horovod_tpu/torch/__init__.py``;
+reference: horovod/torch/mpi_ops.py, horovod/torch/optimizer.py).
 
-This slice carries the runtime calls and the bridge entry point. The
-reference torch API of handles, async ops and the grad-hook
-``DistributedOptimizer`` is not ported yet (ROADMAP queue A, item 7).
+Tensors go to the data plane as they are: NCCL for CUDA tensors, gloo for
+CPU tensors, a loopback at size 1. Results keep the input's dtype and
+device. Async ops return a handle at once; ``synchronize(handle)`` returns
+the result (written back in place for the ``*_`` spellings) and
+``poll(handle)`` never blocks. On CUDA, ``synchronize`` makes the caller's
+stream wait for the transfer; the host does not wait.
+
+``DistributedOptimizer`` is the reference's grad-hook wrapper: each
+parameter's post-accumulate-grad hook marks its gradient ready, and a
+fusion bucket (``ops/bucketing.py``) is packed and its allreduce launched
+when its last member is ready, while backward still runs; ``step()`` waits
+for the buckets and runs the inner update.
+
+Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
+item: sparse allreduce (item 10; ``sparse_as_dense=True`` densifies),
+compression other than ``Compression.none`` (item 9), Adasum (item 10),
+the timeline (item 8), ``metrics_snapshot`` (item 13) and ``elastic``
+(item 11).
 """
 
-from ..basics import init, local_rank, rank, shutdown, size
-from ..functions import broadcast_optimizer_state, broadcast_parameters
+import functools
+
+import torch
+
+from .. import basics
+from .. import functions as _functions
+from ..backend import Work
+from ..basics import (ccl_built, cross_rank, cross_size, cuda_built,
+                      ddl_built, gloo_built, gloo_enabled, init,
+                      is_homogeneous, is_initialized, local_rank, local_size,
+                      mpi_built, mpi_enabled, mpi_threads_supported,
+                      nccl_built, rank, rocm_built, shutdown, size)
+from ..ops import collectives as _c
+from ..ops import compression as _compression
+from ..ops import reduce_ops
+from ..ops.bucketing import DEFAULT_BUCKET_BYTES, GradBuckets
+from ..ops.collectives import poll, synchronize
+from ..ops.compression import Compression
+from ..process_sets import (ProcessSet, add_process_set, global_process_set,
+                            remove_process_set)
+from ..utils import envparse
+from ..utils.logging_util import get_logger
 from .compile import tpu_compile
 
-__all__ = ["init", "shutdown", "rank", "size", "local_rank",
-           "broadcast_parameters", "broadcast_optimizer_state",
-           "tpu_compile"]
+Average = reduce_ops.Average
+Sum = reduce_ops.Sum
+Adasum = reduce_ops.Adasum
+Min = reduce_ops.Min
+Max = reduce_ops.Max
+Product = reduce_ops.Product
+
+
+def _not_ported(what, item):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP queue A, item {item})")
+
+
+def start_timeline(file_path, mark_cycles=None, jax_profiler_dir=None):
+    raise _not_ported("the timeline", 8)
+
+
+def stop_timeline():
+    raise _not_ported("the timeline", 8)
+
+
+def metrics_snapshot():
+    raise _not_ported("metrics_snapshot (telemetry)", 13)
+
+
+def _op(op, average):
+    op = reduce_ops.handle_average_backwards_compatibility(op, average)
+    if op == Adasum:
+        raise _not_ported("Adasum", 10)
+    return op
+
+
+def _check_dense(tensor):
+    if tensor.is_sparse:
+        raise _not_ported("sparse allreduce", 10)
+
+
+# --------------------------------------------------------------------------
+# allreduce
+# --------------------------------------------------------------------------
+def allreduce_async(tensor, average=None, name=None, compression=None,
+                    op=None, prescale_factor=1.0, postscale_factor=1.0,
+                    process_set=global_process_set):
+    """Handle of the reduced copy of ``tensor``. Argument order follows the
+    reference (horovod/torch/mpi_ops.py:211), so positional callers bind
+    correctly."""
+    _compression.check(compression)
+    _check_dense(tensor)
+    return _c.allreduce_async(tensor, op=_op(op, average), name=name,
+                              prescale_factor=prescale_factor,
+                              postscale_factor=postscale_factor,
+                              process_set=process_set)
+
+
+def allreduce_async_(tensor, average=None, name=None, compression=None,
+                     op=None, prescale_factor=1.0, postscale_factor=1.0,
+                     process_set=global_process_set):
+    """Handle of the in-place reduction of ``tensor``."""
+    _compression.check(compression)
+    _check_dense(tensor)
+    return _c.allreduce_async_(tensor, op=_op(op, average), name=name,
+                               prescale_factor=prescale_factor,
+                               postscale_factor=postscale_factor,
+                               process_set=process_set)
+
+
+def allreduce(tensor, average=None, name=None, compression=None,
+              op=None, prescale_factor=1.0, postscale_factor=1.0,
+              process_set=global_process_set):
+    return synchronize(allreduce_async(
+        tensor, average, name, compression, op, prescale_factor,
+        postscale_factor, process_set=process_set))
+
+
+def allreduce_(tensor, average=None, name=None, compression=None,
+               op=None, prescale_factor=1.0, postscale_factor=1.0,
+               process_set=global_process_set):
+    return synchronize(allreduce_async_(
+        tensor, average, name, compression, op, prescale_factor,
+        postscale_factor, process_set=process_set))
+
+
+def sparse_allreduce_async(tensor, name=None, op=None,
+                           process_set=global_process_set):
+    raise _not_ported("sparse_allreduce_async", 10)
+
+
+def grouped_allreduce_async(tensors, average=None, name=None, op=None,
+                            prescale_factor=1.0, postscale_factor=1.0,
+                            process_set=global_process_set):
+    """Handle of the reduced copies of ``tensors`` (reference:
+    horovod/torch/mpi_ops.py:375)."""
+    tensors = list(tensors)
+    for t in tensors:
+        _check_dense(t)
+    return _c.grouped_allreduce_async(tensors, op=_op(op, average),
+                                      name=name,
+                                      prescale_factor=prescale_factor,
+                                      postscale_factor=postscale_factor,
+                                      process_set=process_set)
+
+
+def grouped_allreduce_async_(tensors, average=None, name=None, op=None,
+                             prescale_factor=1.0, postscale_factor=1.0,
+                             process_set=global_process_set):
+    tensors = list(tensors)
+    for t in tensors:
+        _check_dense(t)
+    return _c.grouped_allreduce_async_(tensors, op=_op(op, average),
+                                       name=name,
+                                       prescale_factor=prescale_factor,
+                                       postscale_factor=postscale_factor,
+                                       process_set=process_set)
+
+
+def grouped_allreduce(tensors, average=None, name=None, op=None,
+                      process_set=global_process_set):
+    return synchronize(grouped_allreduce_async(
+        tensors, average, name, op, process_set=process_set))
+
+
+def grouped_allreduce_(tensors, average=None, name=None, op=None,
+                       prescale_factor=1.0, postscale_factor=1.0,
+                       process_set=global_process_set):
+    return synchronize(grouped_allreduce_async_(
+        tensors, average, name, op, prescale_factor, postscale_factor,
+        process_set=process_set))
+
+
+# --------------------------------------------------------------------------
+# allgather, broadcast, alltoall, reducescatter
+# --------------------------------------------------------------------------
+def grouped_allgather(tensors, name=None, process_set=global_process_set):
+    return _c.grouped_allgather(list(tensors), name, process_set)
+
+
+def grouped_reducescatter(tensors, op=None, name=None,
+                          process_set=global_process_set):
+    return _c.grouped_reducescatter(list(tensors), _op(op, None), name,
+                                    process_set)
+
+
+def allgather_async(tensor, name=None, process_set=global_process_set):
+    return _c.allgather_async(tensor, name, process_set)
+
+
+def allgather(tensor, name=None, process_set=global_process_set):
+    return synchronize(allgather_async(tensor, name, process_set))
+
+
+def broadcast_async(tensor, root_rank, name=None,
+                    process_set=global_process_set):
+    return _c.broadcast_async(tensor, root_rank, name, process_set)
+
+
+def broadcast_async_(tensor, root_rank, name=None,
+                     process_set=global_process_set):
+    return _c.broadcast_async_(tensor, root_rank, name, process_set)
+
+
+def broadcast(tensor, root_rank, name=None, process_set=global_process_set):
+    return synchronize(broadcast_async(tensor, root_rank, name, process_set))
+
+
+def broadcast_(tensor, root_rank, name=None, process_set=global_process_set):
+    return synchronize(broadcast_async_(tensor, root_rank, name,
+                                        process_set))
+
+
+def alltoall_async(tensor, splits=None, name=None,
+                   process_set=global_process_set):
+    """Handle resolving to the received tensor, or to ``(received,
+    received_splits)`` when ``splits`` was given."""
+    work = _c.alltoall_async(tensor, splits, name, process_set)
+    if splits is not None:
+        return work
+    return Work([work], lambda: work.wait()[0])
+
+
+def alltoall(tensor, splits=None, name=None, process_set=global_process_set):
+    return synchronize(alltoall_async(tensor, splits, name, process_set))
+
+
+def reducescatter(tensor, op=None, name=None,
+                  process_set=global_process_set):
+    return _c.reducescatter(tensor, _op(op, None), name, process_set)
+
+
+def join(device=-1):
+    """A barrier; returns the last rank to join, -1 when the job has one
+    rank (as the JAX package's torch binding answers outside a
+    multi-process job)."""
+    if basics.size() == 1:
+        return -1
+    return _c.join(device)
+
+
+def barrier(process_set=global_process_set):
+    _c.barrier(process_set)
+
+
+# --------------------------------------------------------------------------
+# objects, parameters, optimizer state
+# --------------------------------------------------------------------------
+def broadcast_object(obj, root_rank=0, name=None,
+                     process_set=global_process_set):
+    return _functions.broadcast_object(obj, root_rank, name, process_set)
+
+
+def allgather_object(obj, name=None, process_set=global_process_set):
+    return _functions.allgather_object(obj, name, process_set)
+
+
+def broadcast_parameters(params, root_rank=0,
+                         process_set=global_process_set):
+    """Overwrite a ``state_dict()`` or ``named_parameters()`` with
+    ``root_rank``'s values (reference: horovod/torch/functions.py
+    broadcast_parameters). Non-tensor entries of a mapping ride the object
+    path, keyed by name."""
+    items = list(params.items()) if hasattr(params, "items") \
+        else list(params)
+    _functions.broadcast_parameters(
+        [(n, t) for n, t in items if torch.is_tensor(t)], root_rank,
+        process_set)
+    other = {n: v for n, v in items if not torch.is_tensor(v)}
+    if other and hasattr(params, "items"):
+        params.update(broadcast_object(other, root_rank,
+                                       process_set=process_set))
+
+
+def broadcast_optimizer_state(optimizer, root_rank=0,
+                              process_set=global_process_set):
+    """Load ``root_rank``'s optimizer state on every rank (reference:
+    horovod/torch/functions.py broadcast_optimizer_state)."""
+    _functions.broadcast_optimizer_state(optimizer, root_rank, process_set)
+
+
+# --------------------------------------------------------------------------
+# the grad-hook optimizer
+# --------------------------------------------------------------------------
+def DistributedOptimizer(optimizer, named_parameters=None,
+                         compression=None, backward_passes_per_step=1,
+                         op=Average, gradient_predivide_factor=1.0,
+                         num_groups=0, groups=None, sparse_as_dense=False,
+                         process_set=global_process_set):
+    """Wrap ``optimizer`` in place so that its ``step()`` applies gradients
+    averaged (or summed, ``op=Sum``) across the set (reference:
+    horovod/torch/optimizer.py:36-275).
+
+    Each optimizer-owned parameter that requires grad gets a
+    post-accumulate-grad hook. Every ``backward_passes_per_step``-th time
+    it fires, the gradient is ready, and a fusion bucket of
+    ``HVDTPU_BUCKET_BYTES`` (default 16 MiB; it takes the place of
+    ``num_groups``/``groups``) is packed and its allreduce launched when
+    its last member is ready. ``step()`` (and ``synchronize()``) waits for
+    every bucket, then runs the inner update. Gradients are multiplied by
+    ``1 / gradient_predivide_factor`` before the sum and by
+    ``gradient_predivide_factor / backward_passes_per_step`` after the
+    average. Hooks are registered only when the job has more than one
+    rank. Every rank must run the same backward, so that the buckets
+    launch in the same order everywhere.
+    """
+    _compression.check(compression)
+    if op == Adasum:
+        raise _not_ported("DistributedOptimizer op=Adasum", 10)
+    if op not in (Average, Sum):
+        raise ValueError(f"DistributedOptimizer op must be Average or Sum, "
+                         f"got {reduce_ops.op_name(op)}")
+    if gradient_predivide_factor != 1.0 and op != Average:
+        raise ValueError("gradient_predivide_factor needs op=Average")
+    if getattr(optimizer, "_hvd_wrapped", False):
+        raise ValueError(
+            "optimizer is already wrapped by DistributedOptimizer; "
+            "wrapping twice would allreduce every gradient twice")
+    k = int(backward_passes_per_step)
+    if k < 1:
+        raise ValueError("backward_passes_per_step must be >= 1")
+
+    if named_parameters is not None:
+        named = list(named_parameters)
+    else:
+        named = [(f"param.{gi}.{pi}", p)
+                 for gi, group in enumerate(optimizer.param_groups)
+                 for pi, p in enumerate(group["params"])]
+    covered = {p for _, p in named}
+    owned = [p for group in optimizer.param_groups for p in group["params"]]
+    if any(p.requires_grad and p not in covered for p in owned):
+        raise ValueError(
+            "named_parameters does not cover all optimizer parameters; pass "
+            "model.named_parameters() for the whole model behind this "
+            "optimizer")
+    cls = type(optimizer)
+
+    class _Distributed(cls):
+        _hvd_wrapped = True
+
+        def synchronize(self):
+            """Wait for every gradient bucket: ``.grad`` holds the reduced
+            values."""
+            if self._hvd_buckets is not None:
+                self._hvd_buckets.wait()
+
+        def step(self, closure=None):
+            self.synchronize()
+            return cls.step(self, closure)
+
+    optimizer.__class__ = _Distributed
+    # An LR scheduler built before this wrapper shadows .step with an
+    # instance attribute around the original class's step, which would
+    # skip synchronize(): wrap that attribute too.
+    inst_step = optimizer.__dict__.get("step")
+    if inst_step is not None:
+        @functools.wraps(inst_step)
+        def _dist_inst_step(closure=None):
+            optimizer.synchronize()
+            return inst_step() if closure is None else inst_step(closure)
+        optimizer.step = _dist_inst_step
+
+    optimizer._hvd_backward_passes = k
+    optimizer._hvd_sync_disabled = basics.size() == 1
+    optimizer._hvd_buckets = None
+    optimizer._hvd_hook_handles = []
+    if optimizer._hvd_sync_disabled:
+        return optimizer
+    owned_ids = {id(p) for p in owned}
+    params = [p for _, p in named if p.requires_grad and id(p) in owned_ids]
+    prescale, postscale = 1.0, 1.0
+    if gradient_predivide_factor != 1.0:
+        prescale = 1.0 / gradient_predivide_factor
+        postscale = gradient_predivide_factor
+    postscale /= k
+    buckets = GradBuckets(
+        params, op, prescale=prescale, postscale=postscale,
+        bucket_bytes=envparse.get_int(envparse.BUCKET_BYTES,
+                                      DEFAULT_BUCKET_BYTES),
+        process_set=process_set)
+    optimizer._hvd_buckets = buckets
+    passes = {}
+
+    def hook(p):
+        passes[p] = passes.get(p, 0) + 1
+        if passes[p] % k:
+            return
+        if p.grad.is_sparse:
+            if not sparse_as_dense:
+                raise _not_ported("sparse gradients without "
+                                  "sparse_as_dense=True", 10)
+            p.grad = p.grad.to_dense()
+        buckets.ready(p)
+
+    for p in params:
+        optimizer._hvd_hook_handles.append(
+            p.register_post_accumulate_grad_hook(hook))
+    return optimizer
+
+
+def __getattr__(name):
+    # Lazy exports of the reference surface (horovod/torch exposes
+    # SyncBatchNorm and the elastic submodule at top level), cached in
+    # globals for identity.
+    if name == "SyncBatchNorm":
+        from .sync_batch_norm import SyncBatchNorm
+        globals()[name] = SyncBatchNorm
+        return SyncBatchNorm
+    if name == "elastic":
+        raise _not_ported("horovod_tpu_torch.torch.elastic", 11)
+    raise AttributeError(name)

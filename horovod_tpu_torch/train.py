@@ -3,15 +3,21 @@
 
 The reference's execution model (horovod/torch/optimizer.py): each process
 runs forward and backward on its shard of the batch, the gradients are
-averaged across ranks, and every rank applies the same update. This slice
-reduces after backward; the JAX package's per-process step
-(``_make_hostplane_train_step``) is the model for :func:`make_train_step`.
+averaged across ranks, and every rank applies the same update. The JAX
+package's per-process step (``_make_hostplane_train_step``) is the model
+for :func:`make_train_step`.
+
+:class:`DistributedOptimizer` here is the counterpart of
+``horovod_tpu.jax.DistributedOptimizer``: it reduces after backward. The
+reference torch API's grad-hook wrapper, which reduces while backward runs,
+is ``horovod_tpu_torch.torch.DistributedOptimizer``; the train step takes
+either.
 """
 
 from .ops import reduce_ops
 from .ops.bucketing import DEFAULT_BUCKET_BYTES, bucketed_allreduce_
-from .ops.collectives import allreduce
-from .process_sets import check_global, global_process_set
+from .ops.collectives import allreduce, grouped_allreduce_
+from .process_sets import global_process_set
 from .utils import envparse
 
 
@@ -30,7 +36,7 @@ class DistributedOptimizer:
         the reduction.
       compression: wire codecs are not ported yet; anything but None
         raises.
-      process_set: the global set (the only one in this slice).
+      process_set: the ranks that reduce together (default all).
 
     Gradients are reduced in buckets of ``HVDTPU_BUCKET_BYTES`` (default
     16 MiB) after backward; the result is bit-identical to reducing each
@@ -53,7 +59,7 @@ class DistributedOptimizer:
             raise NotImplementedError(
                 "HVDTPU_ZERO: the ZeRO-1 sharded update is not ported yet "
                 "(ROADMAP queue A, item 10)")
-        check_global(process_set, "DistributedOptimizer")
+        self.process_set = process_set
         self.inner = optimizer
         self.op = op
         self.k = int(backward_passes_per_step)
@@ -84,7 +90,8 @@ class DistributedOptimizer:
             for g in grads:
                 g.div_(self.k)
         bucketed_allreduce_(grads, self.op, bucket_bytes=self._bucket_bytes,
-                            prescale=self.prescale, postscale=self.postscale)
+                            prescale=self.prescale, postscale=self.postscale,
+                            process_set=self.process_set)
 
     def step(self):
         """Count one backward pass; on every k-th, reduce the accumulated
@@ -98,7 +105,7 @@ class DistributedOptimizer:
         return True
 
 
-def make_train_step(loss_fn, dist_opt):
+def make_train_step(loss_fn, dist_opt, has_aux=False):
     """The per-process data-parallel step (port of
     ``_make_hostplane_train_step``).
 
@@ -106,13 +113,38 @@ def make_train_step(loss_fn, dist_opt):
     the batch. The returned ``step(model, batch) -> loss`` runs forward and
     backward, lets ``dist_opt`` reduce the gradients and update (clearing
     them after each update), and returns the loss averaged across ranks,
-    detached.
+    detached. ``dist_opt`` is this module's :class:`DistributedOptimizer`
+    or an optimizer wrapped by ``horovod_tpu_torch.torch.
+    DistributedOptimizer`` (stepped every ``backward_passes_per_step``
+    calls).
+
+    With ``has_aux=True`` the model carries state besides its parameters
+    in floating-point buffers (BatchNorm running statistics, flax's
+    ``batch_stats``): after the update they are averaged across ranks in
+    one grouped allreduce, as the JAX step averages its aux state
+    (``jax/__init__.py:688-695``). Integer buffers (``num_batches_tracked``)
+    stay as they are.
     """
+    hooked = getattr(dist_opt, "_hvd_wrapped", False)
+    passes = [0]
+
+    def update():
+        if not hooked:
+            return dist_opt.step()
+        passes[0] += 1
+        if passes[0] % dist_opt._hvd_backward_passes:
+            return False
+        dist_opt.step()
+        return True
+
     def step(model, batch):
         loss = loss_fn(model, batch)
         loss.backward()
-        if dist_opt.step():
+        if update():
             dist_opt.zero_grad()
+        if has_aux:
+            aux = [b for b in model.buffers() if b.is_floating_point()]
+            if aux:
+                grouped_allreduce_(aux, op=reduce_ops.Average)
         return allreduce(loss.detach(), op=reduce_ops.Average)
     return step
-

@@ -3,6 +3,9 @@ card: ``flash_attention`` forward and backward against the dense
 ``reference_attention`` (autograd through plain PyTorch), without dropout and
 in both dropout modes (an explicit keep-mask, and a seed whose Philox pattern
 the reference is fed), and one launch of each kernel per forward/backward.
+Also Horovod's torch API (``horovod_tpu_torch.torch``) on CUDA tensors at
+size 1: handles, grouped ops, alltoall, reducescatter and join keep the
+input's dtype and device, and no call makes the host wait.
 
 Needs a CUDA device and nvcc; everywhere else every test skips. Imports
 only torch and the port, so it runs where JAX is not installed:
@@ -242,3 +245,62 @@ def test_head_dim_128_causal_on_the_sixteen_bit_kernels(cuda, dtype, tol,
     _check_against_reference((1, 2, 300, 128), dtype,
                              dict(causal=True, q_offset=32, k_offset=48,
                                   kv_len=250), mode, tol, cuda)
+
+
+# ---------------------------------------------------------------------------
+# Horovod's torch API on CUDA tensors at size 1
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def hvd_cuda(cuda):
+    import horovod_tpu_torch.torch as hvd
+    hvd.shutdown()
+    hvd.init()
+    yield hvd
+    hvd.shutdown()
+
+
+def _on_card(t, like):
+    return t.device == like.device and t.dtype == like.dtype
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_async_allreduce_handles_on_cuda(hvd_cuda, dtype):
+    hvd = hvd_cuda
+    x = torch.arange(8, device="cuda").to(dtype)
+    h = hvd.allreduce_async_(x, op=hvd.Sum, prescale_factor=2.0)
+    assert hvd.poll(h) is True
+    out = hvd.synchronize(h)
+    assert out is x and _on_card(out, x)
+    assert torch.equal(x, 2 * torch.arange(8, device="cuda").to(dtype))
+    y = hvd.synchronize(hvd.allreduce_async(x, postscale_factor=0.5))
+    assert _on_card(y, x) and torch.equal(y, x * 0.5)
+
+
+def test_grouped_alltoall_reducescatter_join_on_cuda(hvd_cuda):
+    hvd = hvd_cuda
+    xs = [torch.ones(3, device="cuda"), torch.arange(4, device="cuda")]
+    outs = hvd.synchronize(hvd.grouped_allreduce_async(xs, op=hvd.Sum))
+    assert all(_on_card(o, x) and torch.equal(o, x)
+               for o, x in zip(outs, xs))
+    splits = torch.tensor([4], dtype=torch.int32, device="cuda")
+    got, recv = hvd.alltoall(xs[1], splits=splits)
+    assert _on_card(got, xs[1]) and torch.equal(got, xs[1])
+    assert recv.dtype == torch.int32 and recv.device == splits.device
+    rs = hvd.reducescatter(xs[0].bfloat16())
+    assert rs.dtype == torch.bfloat16 and rs.device.type == "cuda"
+    assert hvd.join() == -1
+
+
+def test_async_handles_make_the_host_wait_for_nothing(hvd_cuda):
+    hvd = hvd_cuda
+    xs = [torch.randn(1024, device="cuda") for _ in range(4)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handles = [hvd.allreduce_async_(x, op=hvd.Average) for x in xs]
+        handles.append(hvd.grouped_allreduce_async(xs, op=hvd.Sum))
+        for h in handles:
+            hvd.poll(h)
+            hvd.synchronize(h)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

@@ -116,8 +116,12 @@ def test_size_one_runtime_on_the_cpu(cpu_runtime):
     hvd.barrier()
     assert hvd.global_process_set.size() == 1
     assert hvd.global_process_set.rank() == 0
-    with pytest.raises(NotImplementedError):
+    # Process sets are ported: a set must be registered before use, and
+    # the global set's ranks cannot be registered twice.
+    with pytest.raises(ValueError, match="not registered"):
         hvd.allreduce(x, process_set=hvd.ProcessSet([0]))
+    with pytest.raises(ValueError, match="already exists"):
+        hvd.add_process_set([0])
 
 
 def test_broadcast_optimizer_state_round_trips(cpu_runtime):
