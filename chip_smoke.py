@@ -20,6 +20,23 @@ paths at full width:
   brings the user's side: a stand-in of HF's ``BertForMaskedLM`` in plain
   ``torch.nn`` with its layout and parameter names.
 
+- ResNet-50 at batch 256 through Horovod's PyTorch API
+  (``horovod_tpu_torch.torch``, ``[resnet]``), and that API's calls on CUDA
+  tensors (``[api]``);
+- ``[native]``: the control plane. A child process runs as rank 0 of a
+  one-rank launcher job (``HVDTPU_PEERS`` on a port it reserves,
+  ``HVDTPU_TIMELINE``): the native core (``horovod_tpu_torch/csrc/core/``,
+  built with g++ while nvcc runs) negotiates and fuses every named tensor
+  and NCCL executes. The TransformerLM trains 5 steps through
+  ``train.DistributedOptimizer`` (losses held to [train]'s within 1e-5
+  relative) and ResNet-50 5 steps through the torch binding's gradient
+  hooks (within 1e-3 of [resnet]'s); it prints per step the named
+  submissions, fused responses and their bytes, native cycles and the
+  cycle thread's busy time, the step time beside the single-process
+  plane's, 0 host waits, the [api] checks again, an alltoall's time, and
+  that the timeline holds negotiated ``grad.*`` allreduces. A second child
+  times the same steps without any timeline: the control plane's cost.
+
 For each path it times 10 more steps on the host (enqueue time, step time,
 calls that made the host wait for the device) and profiles one by kernel
 family. Prints one JSON line of per-kernel numbers, the card's name and
@@ -585,13 +602,14 @@ def model_check(hvd, models, torch):
         fail("flash-attention model logits disagree with dense attention")
 
 
-def train_phase(hvd, fa, models, torch):
+def transformer_setup(hvd, models):
+    """The full-width TransformerLM from seed 0, its parameters broadcast,
+    AdamW wrapped by DistributedOptimizer, the train step and one batch."""
     cfg = models.TransformerConfig(
         vocab_size=30522, hidden=1024, layers=24, heads=16, max_len=512,
         causal=True, use_rope=True, attention_impl="flash")
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = models.TransformerLM(cfg, device=hvd.device(), generator=gen)
-    n_params = sum(p.numel() for p in model.parameters())
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     opt = hvd.DistributedOptimizer(torch.optim.AdamW(
         model.parameters(), lr=1e-4, weight_decay=1e-4))
@@ -607,6 +625,14 @@ def train_phase(hvd, fa, models, torch):
                       device="cuda", generator=gen)
     y = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_len),
                       device="cuda", generator=gen)
+    return cfg, model, step, x, y
+
+
+def train_phase(hvd, fa, models, torch):
+    """5 AdamW steps of the TransformerLM on the single-process plane;
+    returns the kernels' launches, the losses and the median step ms."""
+    cfg, model, step, x, y = transformer_setup(hvd, models)
+    n_params = sum(p.numel() for p in model.parameters())
     log(f"[train] TransformerLM {n_params / 1e6:.1f}M params, batch "
         f"{TRAIN_BATCH} x seq {cfg.max_len}, {TRAIN_STEPS} AdamW steps")
 
@@ -647,7 +673,7 @@ def train_phase(hvd, fa, models, torch):
     median, _ = host_phase(lambda: step(model, (x, y)))
     log(f"[host] at the median step: {rates(median)}")
     profile_step(lambda: step(model, (x, y)).item(), median)
-    return launches
+    return launches, losses, steady, median
 
 
 def _rel_fro(got, want):
@@ -1038,10 +1064,11 @@ def train_flops_per_image(model, image_size=224):
     return 3 * flops
 
 
-def api_phase(hvd_torch):
+def api_phase(hvd_torch, label="[api]", joined_rank=-1):
     """Horovod's torch API on CUDA tensors at size 1: an async in-place
     allreduce polled and synchronized, a grouped one, alltoall with splits,
-    reducescatter and join, each checked for values, dtype and device,
+    reducescatter and join (``joined_rank``: -1 in a single-process job, 0
+    in a one-rank launcher job), each checked for values, dtype and device,
     with the host allowed to wait for nothing."""
     hvd = hvd_torch
     x = torch.arange(8, device="cuda", dtype=torch.bfloat16)
@@ -1052,7 +1079,7 @@ def api_phase(hvd_torch):
     torch.cuda.set_sync_debug_mode("error")
     try:
         h = hvd.allreduce_async_(x, op=hvd.Sum, prescale_factor=2.0)
-        polled = hvd.poll(h)
+        polled = isinstance(hvd.poll(h), bool)
         out = hvd.synchronize(h)
         grouped = hvd.synchronize(hvd.grouped_allreduce_async(
             xs, op=hvd.Average, postscale_factor=3.0))
@@ -1062,7 +1089,7 @@ def api_phase(hvd_torch):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     checks = {
-        "allreduce_async_ poll": polled is True,
+        "allreduce_async_ poll": polled and hvd.poll(h) is True,
         "allreduce_async_ in place": (
             out is x and x.dtype == torch.bfloat16 and x.device.type == "cuda"
             and torch.equal(x, 2 * torch.arange(8, device="cuda",
@@ -1075,12 +1102,12 @@ def api_phase(hvd_torch):
                             and recv.dtype == torch.int32
                             and recv.tolist() == [6]),
         "reducescatter": rs.device.type == "cuda" and torch.equal(rs, xs[0]),
-        "join": joined == -1,
+        "join": joined == joined_rank,
     }
-    log("[api] " + ", ".join(f"{k}: {'ok' if v else 'FAILED'}"
-                             for k, v in checks.items()))
+    log(f"{label} " + ", ".join(f"{k}: {'ok' if v else 'FAILED'}"
+                                for k, v in checks.items()))
     if not all(checks.values()):
-        fail(f"the torch API at size 1 on CUDA tensors: {checks}")
+        fail(f"{label} the torch API at size 1 on CUDA tensors: {checks}")
 
 
 def resnet_check(models):
@@ -1108,20 +1135,15 @@ def resnet_check(models):
         fail("bf16 ResNet-50 logits disagree with fp32")
 
 
-def resnet_phase(hvd_torch, models, train):
-    """Horovod's PyTorch recipe on ResNet-50 (1000 classes, 224x224, bf16
-    compute, fp32 parameters, channels_last), batch 256 per GPU, random
-    images and labels from seed 0, SGD(lr=0.1) as bench.py trains it:
-    broadcast the parameters and optimizer state, wrap the optimizer,
-    train RESNET_STEPS steps through make_train_step(has_aux=True)."""
-    hvd = hvd_torch
-    hvd.init()
+def resnet_setup(hvd, models, train):
+    """ResNet-50 from seed 0, its parameters and SGD state broadcast, the
+    optimizer wrapped by the torch binding's DistributedOptimizer, the
+    has_aux train step, one batch and the FLOPs of a trained image."""
     torch.backends.cudnn.benchmark = True
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = models.ResNet50(num_classes=1000, dtype=torch.bfloat16,
                             device="cuda", generator=gen)
     model = model.to(memory_format=torch.channels_last)
-    n_params = sum(p.numel() for p in model.parameters())
     flops = train_flops_per_image(model)
     x = torch.rand((RESNET_BATCH, 3, 224, 224), device="cuda",
                    generator=gen).to(torch.bfloat16).to(
@@ -1137,7 +1159,20 @@ def resnet_phase(hvd_torch, models, train):
     def loss_fn(m, batch):
         bx, by = batch
         return F.cross_entropy(m(bx), by)
-    step = train.make_train_step(loss_fn, opt, has_aux=True)
+    return model, train.make_train_step(loss_fn, opt, has_aux=True), x, y, \
+        flops
+
+
+def resnet_phase(hvd_torch, models, train):
+    """Horovod's PyTorch recipe on ResNet-50 (1000 classes, 224x224, bf16
+    compute, fp32 parameters, channels_last), batch 256 per GPU, random
+    images and labels from seed 0, SGD(lr=0.1) as bench.py trains it:
+    broadcast the parameters and optimizer state, wrap the optimizer,
+    train RESNET_STEPS steps through make_train_step(has_aux=True)."""
+    hvd = hvd_torch
+    hvd.init()
+    model, step, x, y, flops = resnet_setup(hvd, models, train)
+    n_params = sum(p.numel() for p in model.parameters())
     log(f"[resnet] ResNet-50 {n_params / 1e6:.2f}M params, batch "
         f"{RESNET_BATCH} x 3 x 224 x 224 bf16 channels_last, SGD lr 0.1, "
         f"{RESNET_STEPS} steps through horovod_tpu_torch.torch "
@@ -1181,6 +1216,232 @@ def resnet_phase(hvd_torch, models, train):
     profile_step(lambda: step(model, (x, y)).item(), median,
                  label="resnet step", families=RESNET_FAMILIES,
                  other="elementwise and other")
+    return losses, steady, median
+
+# [native]: a one-rank launcher job in a child process. TransformerLM
+# losses must equal [train]'s (an average over one rank through NCCL is
+# exact: the same kernels on the same inputs); ResNet-50's may differ by
+# cuDNN's choice of algorithms, which its benchmark mode makes anew.
+NATIVE_TRANSFORMER_RTOL = 1e-5
+NATIVE_RESNET_ATOL = 1e-3
+A2A_MIB = 16
+
+
+def _median(v):
+    v = sorted(v)
+    return v[len(v) // 2]
+
+
+def native_phase(train_losses, train_ms, resnet_losses, resnet_ms):
+    """Drive the native control plane on the card. A child process runs as
+    rank 0 of a one-rank launcher job (``HVDTPU_RANK``/``HVDTPU_SIZE``,
+    ``HVDTPU_PEERS`` on a port the child reserves, ``MASTER_ADDR``/
+    ``MASTER_PORT``, ``HVDTPU_TIMELINE``): the native core negotiates and
+    fuses every named tensor and NCCL executes. Its losses are held to
+    [train]'s and [resnet]'s; its step time beside theirs (``*_ms``: the
+    median of their counted steps and their [host] median) is the control
+    plane's cost at size 1."""
+    import socket
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="hvd-native-") as tmp:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            master = sock.getsockname()[1]
+        env = dict(os.environ, HVDTPU_RANK="0", HVDTPU_SIZE="1",
+                   HVDTPU_LOCAL_RANK="0", HVDTPU_LOCAL_SIZE="1",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(master))
+        out = os.path.join(tmp, "native.json")
+        # The job with its timelines (the checks), then the same steps
+        # without any timeline (the control plane's own cost).
+        for args, extra in ((["--native-child", out], dict(
+                HVDTPU_TIMELINE=os.path.join(tmp, "timeline.json"))),
+                            (["--native-child", out + ".bare", "bare"], {})):
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), *args],
+                env={**env, **extra}, timeout=900)
+            if proc.returncode != 0:
+                fail(f"[native] the one-rank launcher job exited "
+                     f"{proc.returncode}")
+        with open(out) as f:
+            res = json.load(f)
+        with open(out + ".bare") as f:
+            bare = json.load(f)
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(res["transformer_losses"], train_losses))
+    diff = max(abs(a - b) for a, b in zip(res["resnet_losses"],
+                                          resnet_losses))
+    log(f"[native] TransformerLM losses {res['transformer_losses']} against "
+        f"[train]'s: max relative difference {rel:.2e} (limit "
+        f"{NATIVE_TRANSFORMER_RTOL:.0e}); ResNet-50 losses "
+        f"{res['resnet_losses']} against [resnet]'s: max difference "
+        f"{diff:.2e} (limit {NATIVE_RESNET_ATOL:.0e})")
+    for label, ms, ref, host, ref_host in (
+            ("TransformerLM", res["transformer_ms"], train_ms[0],
+             res["transformer_host_ms"], train_ms[1]),
+            ("ResNet-50", res["resnet_ms"], resnet_ms[0],
+             res["resnet_host_ms"], resnet_ms[1])):
+        log(f"[native] {label} step ms (median of steps 2..5, timeline on) "
+            f"{ms:.1f} against {ref:.1f} on the single-process plane: "
+            f"{ms - ref:+.1f} ms ({(ms - ref) / ref:+.1%}); [host] median "
+            f"(Python timeline off) {host:.1f} against {ref_host:.1f}: "
+            f"{host - ref_host:+.1f} ms ({(host - ref_host) / ref_host:+.1%})")
+    for label, host, ref_host in (
+            ("TransformerLM", bare["transformer_host_ms"], train_ms[1]),
+            ("ResNet-50", bare["resnet_host_ms"], resnet_ms[1])):
+        log(f"[native] {label} [host] median without any timeline {host:.1f} "
+            f"against {ref_host:.1f} on the single-process plane: "
+            f"{host - ref_host:+.1f} ms ({(host - ref_host) / ref_host:+.1%})"
+            ": the control plane's cost at size 1")
+    if len(res["transformer_losses"]) != len(train_losses) or \
+            rel > NATIVE_TRANSFORMER_RTOL:
+        fail("[native] TransformerLM losses differ from [train]'s")
+    if len(res["resnet_losses"]) != len(resnet_losses) or \
+            diff > NATIVE_RESNET_ATOL:
+        fail("[native] ResNet-50 losses differ from [resnet]'s")
+    return res["launches"]
+
+
+def native_bare_child(out_path, hvd, hvd_torch, models, train):
+    """The steps of ``native_child`` without timelines: 3 warm-up steps,
+    then [host], of each model."""
+    res = {}
+    cfg, model, step, x, y = transformer_setup(hvd, models)
+    rmodel, rstep, rx, ry, _ = resnet_setup(hvd_torch, models, train)
+    for key, label, run in (
+            ("transformer_host_ms", "native TransformerLM step, no timeline",
+             lambda: step(model, (x, y))),
+            ("resnet_host_ms", "native ResNet-50 step, no timeline",
+             lambda: rstep(rmodel, (rx, ry)))):
+        for _ in range(3):
+            run().item()
+        res[key], syncs = host_phase(run, label=label)
+        if syncs:
+            fail(f"[host] {syncs} calls inside the native steps made the "
+                 "host wait for the device")
+    hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def native_child(out_path, bare=False):
+    """The child of ``native_phase`` (run as ``chip_smoke.py --native-child
+    OUT [bare]``): rank 0 of a one-rank launcher job on the NCCL-delegated
+    plane. Writes its losses, step times, launches and timeline counts to
+    OUT; ``bare``, only [host] step times (``native_bare_child``)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from horovod_tpu_torch import native as hnative
+    os.environ["HVDTPU_PEERS"] = \
+        f"127.0.0.1:{hnative.reserve_listen_port()}"
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch import _build, basics, models, train
+    from horovod_tpu_torch.ops import flash_attention as fa
+    t0 = time.perf_counter()
+    hvd.init()
+    rt = basics.runtime()
+    backend, coord = rt.backend, rt.coordinator
+    if rt.mode != basics.MODE_SPMD or backend.name != "nccl-global":
+        fail(f"[native] expected a launcher job on the NCCL-delegated plane, "
+             f"got mode {rt.mode}, backend {backend.name}")
+    if bare:
+        native_bare_child(out_path, hvd, hvd_torch, models, train)
+        return
+    log(f"[native] rank 0 of 1, mode {rt.mode}, backend {backend.name}, "
+        f"core {_build.core_path().name}, HVDTPU_PEERS "
+        f"{os.environ['HVDTPU_PEERS']}; init {time.perf_counter() - t0:.2f} "
+        f"s; fusion threshold {coord.fusion_threshold / 2 ** 20:.0f} MiB, "
+        f"cycle {coord.cycle_time_s * 1e3:.1f} ms")
+
+    def counters():
+        return (coord.submitted, backend.responses, backend.response_bytes,
+                backend.core.cycles(), backend.fusion_copy_bytes,
+                coord.busy_s)
+
+    def run_steps(label, step, model, x, y):
+        losses, times = [], []
+        torch.cuda.synchronize()
+        for i in range(TRAIN_STEPS):
+            c0 = counters()
+            t0 = time.perf_counter()
+            loss = step(model, (x, y)).item()   # .item() synchronizes
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            d = [b - a for a, b in zip(c0, counters())]
+            log(f"  {label} step {i + 1}: loss {loss:.6f}  "
+                f"{times[-1]:.1f} ms  named submissions {d[0]}, fused "
+                f"responses {d[1]} ({d[2] / 2 ** 20:.1f} MiB), native cycles "
+                f"{d[3]}, fusion-buffer copies {d[4] / 2 ** 20:.1f} MiB, "
+                f"cycle thread busy {d[5] * 1e3:.1f} ms")
+        return losses, _median(times[1:])
+
+    cfg, model, step, x, y = transformer_setup(hvd, models)
+    fa.reset_launches()
+    t_losses, t_ms = run_steps("TransformerLM", step, model, x, y)
+    launches = {n: fa.LAUNCHES[n] for n in ("fwd", "bwd_dkv", "bwd_dq")}
+    log(f"[native] TransformerLM: launches {launches}; step ms (median of "
+        f"steps 2..{TRAIN_STEPS}) {t_ms:.1f}")
+    if launches != dict.fromkeys(launches, TRAIN_STEPS * cfg.layers):
+        fail(f"[native] expected {cfg.layers} launches of each no-dropout "
+             f"kernel per step, got {launches}")
+    rmodel, rstep, rx, ry, _ = resnet_setup(hvd_torch, models, train)
+    r_losses, r_ms = run_steps("ResNet-50", rstep, rmodel, rx, ry)
+    log(f"[native] ResNet-50 through the grad hooks: step ms (median of "
+        f"steps 2..{TRAIN_STEPS}) {r_ms:.1f}")
+    # The counted steps above ran with the Python timeline on; [host] runs
+    # without it.
+    hvd_torch.stop_timeline()
+    t_host, t_sync = host_phase(lambda: step(model, (x, y)),
+                                label="native TransformerLM step")
+    r_host, r_sync = host_phase(lambda: rstep(rmodel, (rx, ry)),
+                                label="native ResNet-50 step")
+    if t_sync or r_sync:
+        fail(f"[host] {t_sync + r_sync} calls inside the native steps made "
+             "the host wait for the device")
+    del model, rmodel, step, rstep
+    torch.cuda.empty_cache()
+    api_phase(hvd_torch, label="[native api]", joined_rank=0)
+    rows = A2A_MIB * 2 ** 20 // 4 // 1024
+    xa = torch.randn(rows, 1024, device="cuda")
+    splits = torch.tensor([rows], dtype=torch.int32, device="cuda")
+    a2a = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, _ = hvd_torch.alltoall(xa, splits=splits)
+        torch.cuda.synchronize()
+        a2a.append((time.perf_counter() - t0) * 1e3)
+    if not torch.equal(got, xa):
+        fail("[native] alltoall through the host plane changed the data")
+    a2a_ms = _median(a2a[1:])
+    log(f"[native] alltoall of {A2A_MIB} MiB on the card, staged through "
+        f"pinned host memory to the native TCP plane and back: median "
+        f"{a2a_ms:.2f} ms of 5 (first {a2a[0]:.2f} ms)")
+    path = os.environ["HVDTPU_TIMELINE"]
+    hvd.shutdown()
+    with open(path + ".py.rank0") as f:
+        events = json.load(f)
+    with open(path + ".rank0") as f:
+        native_events = json.load(f)
+    grads = {name: {e["args"]["tensor"] for e in events
+                    if e["name"] == name and e["ph"] == "B"
+                    and e["args"]["tensor"].startswith("grad.")}
+             for name in ("NEGOTIATE_ALLREDUCE", "ALLREDUCE")}
+    negotiated = sum(e.get("name") == "NEGOTIATE" for e in native_events)
+    log(f"[native] timeline {os.path.basename(path)}.py.rank0: "
+        f"{len(events)} events, valid JSON; grad.* names with "
+        f"NEGOTIATE_ALLREDUCE {len(grads['NEGOTIATE_ALLREDUCE'])}, with "
+        f"ALLREDUCE {len(grads['ALLREDUCE'])} (e.g. "
+        f"{sorted(grads['ALLREDUCE'])[:2]}); the core's "
+        f"{os.path.basename(path)}.rank0: {len(native_events)} events, "
+        f"{negotiated} NEGOTIATE")
+    if not grads["NEGOTIATE_ALLREDUCE"] or not grads["ALLREDUCE"] \
+            or not negotiated:
+        fail("[native] the timeline holds no negotiated grad.* allreduce")
+    with open(out_path, "w") as f:
+        json.dump({"transformer_losses": t_losses, "transformer_ms": t_ms,
+                   "resnet_losses": r_losses, "resnet_ms": r_ms,
+                   "transformer_host_ms": t_host, "resnet_host_ms": r_host,
+                   "launches": launches, "alltoall_ms": a2a_ms}, f)
 
 
 def main():
@@ -1200,11 +1461,20 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
+    import threading
     t0 = time.perf_counter()
+    core = {}   # the native core builds (g++) while nvcc runs
+    core_thread = threading.Thread(target=lambda: core.update(
+        path=_build.build_core(), s=time.perf_counter() - t0))
+    core_thread.start()
     build_log = _build.build(["flash_attention"])
     log(f"[build] {', '.join(p.name for p in _build.sources('flash_attention'))}"
         f" -> {_build.library_path('flash_attention').name} in "
         f"{time.perf_counter() - t0:.1f} s")
+    core_thread.join()
+    if "path" not in core:
+        fail("[build] the native core did not build")
+    log(f"[build] csrc/core/*.cc -> {core['path'].name} in {core['s']:.1f} s")
     for unit, text in build_log.items():
         if text.strip():
             log(f"[build] {unit}:\n{text.strip()[-4000:]}")
@@ -1213,7 +1483,9 @@ def main():
     results = kernel_phase(fa)
     hvd.init()
     model_check(hvd, models, torch)
-    launches = {n: c for n, c in train_phase(hvd, fa, models, torch).items()
+    launches, train_losses, train_ms, train_host = train_phase(
+        hvd, fa, models, torch)
+    launches = {n: c for n, c in launches.items()
                 if n in ("fwd", "bwd_dkv", "bwd_dq")}
     torch.cuda.empty_cache()
     bert_check(hvd_torch, fa)
@@ -1223,8 +1495,14 @@ def main():
     torch.cuda.empty_cache()
     api_phase(hvd_torch)
     resnet_check(models)
-    resnet_phase(hvd_torch, models, train)
+    resnet_losses, resnet_ms, resnet_host = resnet_phase(hvd_torch, models,
+                                                         train)
     torch.cuda.empty_cache()
+    native_launches = native_phase(
+        train_losses, (train_ms, train_host), resnet_losses,
+        (resnet_ms, resnet_host))
+    log("[launches] [native] " + ", ".join(
+        f"{n}={c}" for n, c in native_launches.items()))
     log("[launches] " + ", ".join(f"{n}={c}" for n, c in launches.items()))
     if set(launches) != set(KERNELS) or not all(launches.values()):
         fail(f"a kernel was not launched on its path: {launches}")
@@ -1250,4 +1528,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--native-child"]:
+        native_child(sys.argv[2], bare=sys.argv[3:4] == ["bare"])
+    else:
+        main()

@@ -1,17 +1,20 @@
 """horovod_tpu_torch: the PyTorch/CUDA port of horovod_tpu.
 
 Same API shape as the JAX package, written in PyTorch for NVIDIA Hopper:
-``init()`` picks ``cuda:<local_rank>``, eager and async collectives run
-over ``torch.distributed`` on any process set, ``DistributedOptimizer``
-wraps a ``torch.optim.Optimizer``, and the attention kernels are
-hand-written CUDA (``ops/flash_attention.py``, ``csrc/``). Horovod's
+``init()`` picks ``cuda:<local_rank>``; eager and async collectives on any
+process set go through the ``Coordinator``, which in a launcher job has
+the native core (``csrc/core/``) negotiate and fuse named tensors and NCCL
+or the native TCP ring execute them; ``DistributedOptimizer`` wraps a
+``torch.optim.Optimizer``; the attention kernels are hand-written CUDA
+(``ops/flash_attention.py``, ``csrc/``). Horovod's
 PyTorch API is ``horovod_tpu_torch.torch``. The package imports neither JAX
 nor anything of ``horovod_tpu``.
 """
 
 from .basics import (cross_rank, cross_size, device, init, is_initialized,
                      local_rank, local_size, rank, shutdown, size)
-from .exceptions import HorovodInternalError, NotInitializedError
+from .exceptions import (DuplicateNameError, HorovodInternalError,
+                         NotInitializedError, StalledTensorError)
 from .functions import (allgather_object, broadcast_object,
                         broadcast_optimizer_state, broadcast_parameters,
                         broadcast_variables)

@@ -7,9 +7,16 @@ A library is one or more translation units under ``csrc/``
 name carries a hash of the library's sources and of every header in
 ``csrc/``, so an edited source rebuilds and a stale library is never
 loaded. There is no fallback: a missing ``nvcc`` or a failed compile raises.
+
+The native core (``csrc/core/``, the port's copy of the repo's ``csrc/``)
+builds the same way with ``g++``: one process compiles and links every
+``.cc`` into ``_build/libhvdcore-<hash>.so`` (and ``test_core`` into
+``_build/test_core-<hash>``), under a file lock so that processes that
+build at once wait for one another.
 """
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -27,6 +34,9 @@ LIBRARIES = {
     "flash_attention": ("flash_attention.cu", "flash_fwd_sm90.cu",
                         "flash_dkv_sm90.cu", "flash_dq_sm90.cu"),
 }
+
+CORE_DIR = CSRC / "core"
+CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _loaded = {}
@@ -121,3 +131,48 @@ def load(name):
             lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib
+
+
+def _core_sources(with_test):
+    return sorted(p for p in CORE_DIR.glob("*.cc")
+                  if with_test or p.name != "test_core.cc")
+
+
+def core_path(test=False):
+    """``_build/libhvdcore-<hash>.so``, or with ``test`` the ``test_core``
+    binary; the hash covers every source and header of ``csrc/core/``."""
+    digest = hashlib.sha256()
+    for path in sorted(CORE_DIR.glob("*.cc")) + sorted(CORE_DIR.glob("*.h")):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    stem = "test_core" if test else "libhvdcore"
+    suffix = "" if test else ".so"
+    return BUILD_DIR / f"{stem}-{digest.hexdigest()[:16]}{suffix}"
+
+
+def build_core(test=False):
+    """Build the native core library (or its ``test_core`` binary) if it is
+    missing, with one ``g++`` process; returns its path. Raises
+    RuntimeError if g++ is missing or fails."""
+    out = core_path(test)
+    if out.exists():
+        return out
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("horovod_tpu_torch: g++ not found; the native "
+                           "core cannot be built")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "core.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():   # built by another process meanwhile
+            return out
+        tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
+        cmd = [cxx, *CXX_FLAGS, *(() if test else ("-shared",)), "-o",
+               str(tmp), *map(str, _core_sources(test))]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"g++ failed building {out.name}:\n"
+                               f"{proc.stdout}")
+        os.replace(tmp, out)   # atomic: a reader never sees half a file
+    return out

@@ -1,0 +1,431 @@
+"""Native control plane, ``torch.distributed`` data plane (the port's
+counterpart of ``horovod_tpu/backend/xla_global.py``; reference:
+horovod/common/ops/nccl_operations.cc:80-119, the NCCL data plane executing
+what the controller negotiated).
+
+- The native core (``csrc/core/``) keeps the control plane: named-tensor
+  negotiation, fusion, the response cache, stall checks and its timeline,
+  exactly as on the tcp-native plane. Its data ops are delegated: a request
+  enters the core with its shape and dtype only (the tensor may live on the
+  GPU), and every agreed allreduce, allgather, broadcast and reducescatter
+  response comes back to this backend to execute.
+- For each response the local tensors come from this backend's handle
+  table, never from the core. Fused tensors are copied into a persistent
+  fusion buffer per dtype, one ``torch.distributed`` call runs on the
+  response's process-set group (NCCL for CUDA tensors, gloo for CPU ones),
+  and the results are copied back. The handle is then completed in the core
+  with no data.
+- Alltoall, barrier and join run on the native TCP plane, as the core
+  decides. An alltoall of CUDA tensors is staged through pinned host
+  memory: the copy to the host is issued on the backend's stream and the
+  request enters the negotiation once it has landed; the result goes back
+  to the card the same way.
+
+Every call runs on the coordinator's cycle thread, the only thread that
+issues collectives after ``init``; on CUDA it runs on the backend's own
+stream, after the submitting streams' events.
+"""
+
+import contextlib
+import functools
+
+import torch
+
+from .. import native
+from ..coordinator import wait_ready
+from ..exceptions import HorovodInternalError
+from ..utils.logging_util import get_logger
+from . import scale_
+from .tcp_backend import TcpBackend, _Pending, _splits, _sub_names
+
+_DELEGATED = {"allreduce": native.REQ_ALLREDUCE,
+              "allgather": native.REQ_ALLGATHER,
+              "broadcast": native.REQ_BROADCAST,
+              "reducescatter": native.REQ_REDUCESCATTER}
+_KIND_OF = {v: k for k, v in _DELEGATED.items()}
+
+
+def _identity(op, dtype):
+    """The reduce op's identity, contributed for a name this rank has no
+    entry for (a joined rank), as the native FillReduceIdentity does."""
+    if op == native.RED_PROD:
+        return 1
+    if op not in (native.RED_MIN, native.RED_MAX):
+        return 0
+    if dtype.is_floating_point:
+        return float("inf") if op == native.RED_MIN else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if op == native.RED_MIN else info.min
+
+
+def reducescatter_counts(rows, n):
+    """Rows of dim 0 that each of ``n`` ranks receives: earlier ranks take
+    the remainder (csrc/core/core.cc kReducescatter)."""
+    q, r = divmod(rows, n)
+    return [q + (1 if i < r else 0) for i in range(n)]
+
+
+class _Staged:
+    """An alltoall of a CUDA tensor on its way to the host."""
+
+    __slots__ = ("host", "splits", "event")
+
+    def __init__(self, host, splits, event):
+        self.host = host
+        self.splits = splits
+        self.event = event
+
+
+class NcclGlobalBackend(TcpBackend):
+    """Delegated execution: native negotiation, ``torch.distributed``
+    data plane. The process group's rendezvous reads ``MASTER_ADDR`` and
+    ``MASTER_PORT`` (``env://``)."""
+
+    delegate_data_ops = True
+
+    def __init__(self, topology, device):
+        import torch.distributed as dist
+        self._dist = dist
+        self.device = device
+        self.dist_backend = "nccl" if device.type == "cuda" else "gloo"
+        self.name = f"{self.dist_backend}-global"
+        if device.type == "cuda" and not dist.is_nccl_available():
+            raise HorovodInternalError(
+                "CUDA tensors need NCCL, which this build of torch lacks")
+        dist.init_process_group(self.dist_backend, init_method="env://",
+                                rank=topology.rank,
+                                world_size=topology.size)
+        super().__init__(topology)
+        self._red = {native.RED_SUM: dist.ReduceOp.SUM,
+                     native.RED_MIN: dist.ReduceOp.MIN,
+                     native.RED_MAX: dist.ReduceOp.MAX,
+                     native.RED_PROD: dist.ReduceOp.PRODUCT}
+        # native process-set id -> (group, ranks); None is the world.
+        self._groups = {0: (None, list(range(topology.size)))}
+        # native handle -> (entry, tensor, native name): the local side of
+        # every delegated request in flight.
+        self._handles = {}
+        self._results = {}    # native handle -> allgather/reducescatter out
+        self._fusion = {}     # dtype -> persistent fusion buffer
+        self._staged = []     # alltoalls on their way to the host
+        self._stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                        else None)
+        self.runtime = None   # set by the coordinator (timeline)
+        # Counters: responses executed, their payload bytes, and the bytes
+        # copied into and out of fusion buffers.
+        self.responses = 0
+        self.response_bytes = 0
+        self.fusion_copy_bytes = 0
+
+    # -- process sets -----------------------------------------------------
+    def add_process_set(self, ps):
+        super().add_process_set(ps)
+        if ps.process_set_id != 0:
+            # new_group is collective over the world: every rank calls it,
+            # on the thread that registers the set.
+            self._groups[self._ps_map[ps.process_set_id]] = (
+                self._dist.new_group(ps.ranks), list(ps.ranks))
+
+    def remove_process_set(self, ps):
+        native_id = self._ps_map.get(ps.process_set_id)
+        super().remove_process_set(ps)
+        # The group is destroyed with the world at close: the cycle thread
+        # may still hold work on it.
+        self._groups.pop(native_id, None)
+
+    # -- submission -------------------------------------------------------
+    def _timeline(self):
+        return None if self.runtime is None else self.runtime.timeline
+
+    def _enqueue_entry(self, entry):
+        req = _DELEGATED.get(entry.kind)
+        if req is None:
+            if entry.kind == "alltoall" and entry.device.type == "cuda":
+                return self._stage_alltoall(entry)
+            return super()._enqueue_entry(entry)   # barrier, join, CPU a2a
+        for t in entry.tensors:
+            if t.device != self.device:
+                raise HorovodInternalError(
+                    f"{entry.name!r}: tensor on {t.device}, but this rank "
+                    f"runs on {self.device}")
+        ps = self._native_ps(entry.process_set)
+        n = len(entry.process_set.ranks)
+        kw = {}
+        if entry.kind in ("allreduce", "reducescatter"):
+            red, post_extra = self._red_op(entry, n)
+            post = 1.0 if entry.postscale is None else float(entry.postscale)
+            kw.update(red_op=red, postscale=post * post_extra)
+            if entry.kind == "allreduce":
+                kw["prescale"] = (1.0 if entry.prescale is None
+                                  else float(entry.prescale))
+        elif entry.kind == "broadcast":
+            kw["root_rank"] = entry.root_rank
+        handles = []
+        names = _sub_names(entry)
+        for nm, t in zip(names, entry.tensors):
+            h = self.core.enqueue(ps, nm, req, t, with_data=False, **kw)
+            self._handles[h] = (entry, t, nm)
+            handles.append(h)
+        tl = self._timeline()
+        if tl is not None:
+            tl.begin(names, "NEGOTIATE_" + entry.kind.upper())
+        if entry.kind in ("allreduce", "broadcast"):
+            return _Pending(entry, handles, lambda core, hs: entry.tensors)
+        return _Pending(entry, handles, lambda core, hs: [
+            self._results.pop(h) for h in hs])
+
+    def _stage_alltoall(self, entry):
+        t = entry.tensors[0]
+        splits = entry.splits
+        with torch.cuda.stream(self._stream):
+            wait_ready(self._stream, [entry])
+            t.record_stream(self._stream)
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            if splits is not None and splits.device.type == "cuda":
+                splits.record_stream(self._stream)
+                pinned = torch.empty(splits.shape, dtype=splits.dtype,
+                                     pin_memory=True)
+                splits = pinned.copy_(splits, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        p = _Pending(entry, [], _Staged(host, splits, event))
+        self._staged.append(p)
+        return p
+
+    def _enqueue_staged(self, p):
+        """Enter a staged alltoall into the negotiation once its bytes are
+        on the host (an event query: the thread never waits); returns
+        whether it did."""
+        staged = p.unpack
+        if not staged.event.query():
+            return False
+        entry = p.entry
+        h = self.core.enqueue(
+            self._native_ps(entry.process_set), entry.name,
+            native.REQ_ALLTOALL, staged.host,
+            splits=_splits(staged.host.shape[0], staged.splits,
+                           len(entry.process_set.ranks)))
+        p.handles = [h]
+        p.unpack = functools.partial(self._unpack_alltoall_to_device,
+                                     entry.tensors[0].dtype)
+        return True
+
+    def _unpack_alltoall_to_device(self, dtype, core, handles):
+        out = core.output(handles[0], dtype)
+        with torch.cuda.stream(self._stream):
+            dev = out.pin_memory().to(self.device, non_blocking=True)
+        return dev, core.recv_splits(handles[0])
+
+    # -- the cycle --------------------------------------------------------
+    def run_cycle(self):
+        if self._staged:
+            self._staged = [p for p in self._staged
+                            if not self._enqueue_staged(p)]
+        return super().run_cycle()
+
+    def _sweep_one(self, p):
+        if isinstance(p.unpack, _Staged):
+            return False
+        return super()._sweep_one(p)
+
+    def _done_event(self):
+        if self._stream is None:
+            return None
+        done = torch.cuda.Event()
+        done.record(self._stream)
+        return done, self.device
+
+    def _release(self, p):
+        for h in p.handles:
+            self.core.release(h)
+            self._handles.pop(h, None)
+            self._results.pop(h, None)
+
+    def _fail_all(self, exc):
+        super()._fail_all(exc)
+        self._staged = []
+        self._handles.clear()
+        self._results.clear()
+
+    def _drain_delegated(self):
+        touched = set()
+        while True:
+            token = self.core.next_delegated()
+            if token == 0:
+                return touched
+            # Each response is isolated: a failure fails its own handles,
+            # never the cycle thread.
+            d = None
+            try:
+                d = self.core.delegated(token)
+                self._execute(d)
+            except Exception as exc:  # noqa: BLE001 - fail the handles
+                msg = (f"{self.dist_backend} data-plane execution failed: "
+                       f"{type(exc).__name__}: {exc}")
+                get_logger().error("%s", msg)
+                for h in (d["handles"] if d else ()):
+                    if h >= 0:
+                        self._results.pop(h, None)
+                        self.core.delegated_complete(h, error=msg)
+            finally:
+                self.core.delegated_finish(token)
+            for h in (d["handles"] if d else ()):
+                if h in self._handles:
+                    touched.add(id(self._handles[h][0]))
+
+    # -- delegated execution ----------------------------------------------
+    def _execute(self, d):
+        if d["ps_id"] not in self._groups:
+            raise HorovodInternalError(
+                f"native process set {d['ps_id']} has no process group")
+        group, ranks = self._groups[d["ps_id"]]
+        dtype = native.ENUM_TO_DTYPE[d["dtype"]]
+        local = [self._handles.get(h) if h >= 0 else None
+                 for h in d["handles"]]
+        kind = _KIND_OF[d["type"]]
+        names = [item[2] for item in local if item is not None]
+        tl = self._timeline()
+        if tl is not None:
+            tl.end(names, "NEGOTIATE_" + kind.upper())
+            tl.begin(names, kind.upper())
+        with self._on_stream(local):
+            run = getattr(self, "_delegated_" + kind)
+            nbytes = run(d, group, ranks, dtype, local)
+        for h in d["handles"]:
+            if h >= 0:
+                self.core.delegated_complete(h)
+        if tl is not None:
+            tl.end(names, kind.upper())
+        self.responses += 1
+        self.response_bytes += nbytes
+
+    def _on_stream(self, local):
+        """Run on the backend's stream, after every submitting stream's
+        event; the tensors are marked as in use there."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        items = [item for item in local if item is not None]
+        wait_ready(self._stream, [item[0] for item in items])
+        for item in items:
+            item[1].record_stream(self._stream)
+        return torch.cuda.stream(self._stream)
+
+    def _fusion_buffer(self, dtype, numel):
+        buf = self._fusion.get(dtype)
+        if buf is None or buf.numel() < numel:
+            buf = self._fusion[dtype] = torch.empty(
+                numel, dtype=dtype, device=self.device)
+        return buf[:numel]
+
+    def _delegated_allreduce(self, d, group, ranks, dtype, local):
+        sizes = [int(s) for s in d["sizes"]]
+        pre, op = d["prescale"], d["red_op"]
+        esize = torch.empty((), dtype=dtype).element_size()
+        fused = len(local) > 1 or local[0] is None or pre != 1.0
+        if not fused:
+            buf = local[0][1].reshape(-1)
+        elif all(item is not None for item in local):
+            # One kernel packs the bucket; the prescale covers it whole.
+            buf = self._fusion_buffer(dtype, sum(sizes))
+            torch.cat([item[1].reshape(-1) for item in local], out=buf)
+            scale_([buf], pre)
+        else:
+            buf = self._fusion_buffer(dtype, sum(sizes))
+            for item, seg in zip(local, buf.split(sizes)):
+                if item is None:
+                    # A joined rank's slot: the op's identity, unscaled
+                    # (csrc/core/core.cc does the same).
+                    seg.fill_(_identity(op, dtype))
+                else:
+                    seg.copy_(item[1].reshape(-1))
+                    scale_([seg], pre)
+        self._dist.all_reduce(buf, op=self._red[op], group=group)
+        scale_([buf], d["postscale"])
+        if fused:
+            mine = [(item[1].reshape(-1), seg) for item, seg
+                    in zip(local, buf.split(sizes)) if item is not None]
+            if mine:   # a joined rank executes with no entry of its own
+                torch._foreach_copy_([m for m, _ in mine],
+                                     [s for _, s in mine])
+            self.fusion_copy_bytes += 2 * sum(
+                m.numel() for m, _ in mine) * esize
+        return sum(sizes) * esize
+
+    def _delegated_broadcast(self, d, group, ranks, dtype, local):
+        count, root = int(d["sizes"][0]), int(d["sizes"][1])
+        item = local[0]
+        buf = (item[1].reshape(-1) if item is not None
+               else torch.zeros(count, dtype=dtype, device=self.device))
+        self._dist.broadcast(buf, src=ranks[root], group=group)
+        return count * buf.element_size()
+
+    def _delegated_allgather(self, d, group, ranks, dtype, local):
+        n = len(ranks)
+        rows = [int(r) for r in d["sizes"][:n]]
+        row_elems = int(d["sizes"][n])
+        me = ranks.index(self.topology.rank)
+        item = local[0]
+        if item is not None:
+            src, tail = item[1].reshape(-1), tuple(item[1].shape[1:])
+        else:
+            src = torch.zeros(rows[me] * row_elems, dtype=dtype,
+                              device=self.device)
+            tail = None
+        most = max(rows) * row_elems
+        if src.numel() != most:   # ragged: pad every part to the largest
+            padded = torch.zeros(most, dtype=dtype, device=self.device)
+            padded[:src.numel()] = src
+            src = padded
+        parts = [torch.empty(most, dtype=dtype, device=self.device)
+                 for _ in range(n)]
+        self._dist.all_gather(parts, src, group=group)
+        if item is not None:
+            out = torch.cat([p[:r * row_elems] for p, r in zip(parts, rows)])
+            self._results[d["handles"][0]] = out.reshape(
+                (sum(rows),) + tail)
+        return sum(rows) * row_elems * src.element_size()
+
+    def _delegated_reducescatter(self, d, group, ranks, dtype, local):
+        item = local[0]
+        if item is None:
+            # The controller rejects join + reducescatter; only a handle
+            # released mid-negotiation lands here (core.cc errors alike).
+            raise HorovodInternalError("reducescatter with no local entry")
+        t = item[1]
+        n, me = len(ranks), ranks.index(self.topology.rank)
+        rows = t.shape[0] if t.dim() else 1
+        row_elems = t.numel() // max(rows, 1)
+        counts = reducescatter_counts(rows, n)
+        chunk = counts[0] * row_elems
+        src = t.reshape(-1)
+        if d["prescale"] != 1.0:
+            src = src.clone()
+            scale_([src], d["prescale"])
+        if counts[-1] != counts[0]:
+            # Uneven: pad every rank's part to the first (largest) one,
+            # so that the collective scatters equal chunks.
+            padded = torch.zeros(n * chunk, dtype=dtype, device=self.device)
+            start = 0
+            for i, c in enumerate(counts):
+                padded[i * chunk:i * chunk + c * row_elems] = \
+                    src[start:start + c * row_elems]
+                start += c * row_elems
+            src = padded
+        out = torch.empty(chunk, dtype=dtype, device=self.device)
+        scatter = (getattr(self._dist, "reduce_scatter_single", None)
+                   or self._dist.reduce_scatter_tensor)
+        scatter(out, src, op=self._red[d["red_op"]], group=group)
+        scale_([out], d["postscale"])
+        self._results[d["handles"][0]] = out[:counts[me] * row_elems] \
+            .reshape((counts[me],) + tuple(t.shape[1:]))
+        return t.numel() * t.element_size()
+
+    def close(self):
+        try:
+            super().close()
+        finally:
+            if self._stream is not None:
+                self._stream.synchronize()
+            if self._dist.is_initialized():
+                self._dist.destroy_process_group()

@@ -3,9 +3,15 @@
 
 The port runs the reference's execution model: one process per GPU, ranks
 from the launcher's environment (the same ``HVDTPU_*``/``HOROVOD_*`` names
-the JAX package reads, so one launcher serves both). Size 1 runs on a
-loopback backend; larger jobs on ``torch.distributed`` (NCCL on CUDA, gloo
-on the CPU).
+the JAX package reads, so one launcher serves both). Every collective goes
+through the runtime's ``Coordinator``:
+
+- ``single`` mode (no launcher environment): one process, the
+  coordinator's Python plane on the loopback backend;
+- ``spmd`` mode (``RANK`` and ``SIZE`` set, at any size, 1 included): the
+  native core negotiates across the ranks listed in ``HVDTPU_PEERS``, and
+  NCCL (CUDA tensors) or the native TCP ring or gloo (CPU tensors)
+  executes (``backend.make_spmd_backend``).
 
 Entry points run on the card: ``init()`` picks ``cuda:<local_rank>`` and
 raises when there is no CUDA device, unless the caller asks for the CPU
@@ -45,14 +51,27 @@ class Topology:
         return cls(rank, size, local_rank, local_size, cross_rank, cross_size)
 
 
-class Runtime:
-    """Owns topology, device, backend and the process-set table."""
+MODE_SINGLE = "single"
+MODE_SPMD = "spmd"
 
-    def __init__(self, topology, device, backend):
+
+class Runtime:
+    """Owns topology, device, backend, coordinator, timeline and the
+    process-set table."""
+
+    def __init__(self, mode, topology, device, backend):
+        self.mode = mode
         self.topology = topology
         self.device = device
         self.backend = backend
         self.process_set_table = None   # attached by process_sets._setup
+        self.coordinator = None         # attached by init
+        self.timeline = None            # HVDTPU_TIMELINE or start_timeline
+        self._shutdown = False
+
+    def check_alive(self):
+        if self._shutdown:
+            raise NotInitializedError("Runtime was shut down; operations")
 
 
 _runtime = None
@@ -78,8 +97,7 @@ def init(comm=None, process_sets=None, device=None):
       process_sets: ``ProcessSet`` objects to register at startup, besides
         the global set (every rank passes the same list).
       device: where this rank computes. Default ``cuda:<local_rank>``;
-        ``"cpu"`` runs on the CPU (gloo backend when the job has several
-        ranks).
+        ``"cpu"`` runs on the CPU.
     """
     global _runtime
     with _init_lock:
@@ -98,18 +116,37 @@ def init(comm=None, process_sets=None, device=None):
         dev = _pick_device(device, topology)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        from .backend import LoopbackBackend, TorchDistBackend
-        if topology.size > 1:
-            backend = TorchDistBackend(topology, dev)
+        # Auto-name counters restart with the runtime, so that ranks that
+        # initialize again agree on generated names.
+        from .ops.collectives import reset_auto_name_counters
+        reset_auto_name_counters()
+        from .backend import LoopbackBackend, make_spmd_backend
+        if spmd:
+            mode, backend = MODE_SPMD, make_spmd_backend(topology, dev)
         else:
-            backend = LoopbackBackend()
+            mode, backend = MODE_SINGLE, LoopbackBackend()
         from . import process_sets as ps_mod
-        runtime = Runtime(topology, dev, backend)
+        from .coordinator import Coordinator
+        runtime = Runtime(mode, topology, dev, backend)
         ps_mod._setup(runtime)
         for ps in process_sets or ():
             runtime.process_set_table.register(ps)
-        get_logger().info("init: rank=%d size=%d device=%s backend=%s",
-                          topology.rank, topology.size, dev, backend.name)
+        runtime.coordinator = Coordinator(runtime)
+        runtime.coordinator.start()
+        timeline_path = envparse.get_str(envparse.TIMELINE, "")
+        if timeline_path:
+            from .timeline import Timeline
+            if mode == MODE_SPMD:
+                # The native core writes <path>.rank<r>; the Python plane
+                # (the delegated data plane's spans) <path>.py.rank<r>.
+                timeline_path += f".py.rank{topology.rank}"
+            runtime.timeline = Timeline(
+                timeline_path, mark_cycles=envparse.get_bool(
+                    envparse.TIMELINE_MARK_CYCLES))
+            runtime.timeline.start()
+        get_logger().info("init: %s mode rank=%d size=%d device=%s "
+                          "backend=%s", mode, topology.rank, topology.size,
+                          dev, backend.name)
         _runtime = runtime
         return _runtime
 
@@ -120,9 +157,15 @@ def shutdown():
     with _init_lock:
         if _runtime is None:
             return
+        # The coordinator stops before the backend closes: its cycle thread
+        # is the only one that drives the backend.
+        _runtime.coordinator.stop()
+        if _runtime.timeline is not None:
+            _runtime.timeline.stop()
+        _runtime.backend.close()
         from . import process_sets
         process_sets._teardown(_runtime)
-        _runtime.backend.close()
+        _runtime._shutdown = True
         _runtime = None
 
 
@@ -176,7 +219,8 @@ def is_homogeneous():
 
 
 # What this build of torch can run on (reference: horovod/common/basics.py
-# *_built / *_enabled). The port's data plane is torch.distributed.
+# *_built / *_enabled). The port's data plane is torch.distributed or the
+# native core's TCP ring.
 def mpi_built():
     import torch.distributed as dist
     return dist.is_available() and dist.is_mpi_available()
@@ -196,7 +240,7 @@ def gloo_built():
 
 
 def gloo_enabled():
-    return runtime().backend.name == "gloo"
+    return getattr(runtime().backend, "dist_backend", None) == "gloo"
 
 
 def nccl_built():

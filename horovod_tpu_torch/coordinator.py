@@ -1,0 +1,558 @@
+"""Background coordinator: tensor queue, fusion, dispatch, async handles
+(port of ``horovod_tpu/coordinator.py``; reference: horovod/common/
+operations.cc:385 BackgroundThreadLoop, controller.cc:73
+ComputeResponseList).
+
+- Framework threads **submit** named tensors and get a handle back at once
+  (reference: EnqueueTensorAllreduces, operations.cc:1384). A name is
+  unique among in-flight operations of a process set.
+- One background thread drains the queue every cycle (default 1 ms). In a
+  single-process job (the Python plane) it groups compatible allreduces,
+  **fuses** each group under the fusion threshold (reference:
+  controller.cc:808 FuseResponses, 128 MiB, operations.cc:491) and hands
+  each bucket to the loopback backend in one call. In a launcher job the
+  backend drives its own cycle: the native core negotiates which named
+  tensors are ready on every rank, fuses them and checks for stalls, and
+  the backend executes the agreed responses (``_loop_native``).
+
+On CUDA tensors: ``submit`` records an event on the submitting thread's
+current stream; the cycle thread makes its own stream wait on it before it
+touches a tensor, and completes the handle with an event recorded after
+the operation was issued. ``Handle.wait`` blocks the host only until the
+cycle thread has issued the operation, then makes the caller's current
+stream wait on that event.
+"""
+
+import contextlib
+import itertools
+import threading
+import time
+
+import torch
+
+from .exceptions import DuplicateNameError, HorovodInternalError
+from .telemetry import core as telemetry
+from .telemetry import span as tele_span
+from .utils import envparse
+from .utils.callsite import format_user_frame
+from .utils.logging_util import get_logger
+
+DEFAULT_CYCLE_TIME_MS = 1.0
+DEFAULT_FUSION_THRESHOLD = 128 * 1024 * 1024  # reference: operations.cc:491
+# Warn when a submitted op stays in flight this long (reference stall
+# inspector default, horovod/common/stall_inspector.cc).
+DEFAULT_STALL_WARN_S = 60.0
+# A native cycle with nothing in flight on this rank waits this long for a
+# submission instead of one cycle time: the thread then stops taking the
+# GIL from the submitting threads 1000 times a second. Peers that
+# negotiate meanwhile wait for it only for ops this rank has not
+# submitted, which a submission ends at once.
+IDLE_CYCLE_S = 0.05
+
+
+def _tensors_of(result):
+    if isinstance(result, torch.Tensor):
+        return (result,)
+    if isinstance(result, (list, tuple)):
+        return tuple(r for r in result if isinstance(r, torch.Tensor))
+    return ()
+
+
+class Handle:
+    """Async completion handle (analog of the reference's int handle and
+    handle_manager, horovod/torch/mpi_ops_v2.cc:604-624)."""
+
+    __slots__ = ("_event", "_result", "_exception", "_done", "name",
+                 "enqueue_time")
+
+    def __init__(self, name):
+        self._event = threading.Event()
+        self._result = None
+        self._exception = None
+        self._done = None   # (CUDA event, device): the operation was issued
+        self.name = name
+        self.enqueue_time = None   # stamped by TensorEntry
+
+    def _complete(self, result, done=None):
+        self._result = result
+        self._done = done
+        self._event.set()
+
+    def _fail(self, exc):
+        self._exception = exc
+        self._event.set()
+
+    def poll(self):
+        """True when ``wait`` would return without blocking the host
+        (reference: PollHandle, horovod/torch/mpi_ops_v2.cc:604)."""
+        return self._event.is_set()
+
+    def wait(self, timeout=None):
+        """The result. On CUDA tensors the caller's current stream is made
+        to wait for the operation; the host does not wait for the card."""
+        if not self._event.wait(timeout):
+            age = ("" if self.enqueue_time is None else
+                   f"; in flight {time.monotonic() - self.enqueue_time:.1f}s"
+                   " since submit")
+            raise TimeoutError(
+                f"Operation {self.name!r} did not complete within "
+                f"{timeout}s{age}")
+        if self._exception is not None:
+            raise self._exception
+        if self._done is not None:
+            event, device = self._done
+            stream = torch.cuda.current_stream(device)
+            stream.wait_event(event)
+            for t in _tensors_of(self._result):
+                if t.is_cuda:
+                    t.record_stream(stream)
+        return self._result
+
+
+_READY_LOCK = threading.Lock()
+_READY_SEQ = itertools.count()
+
+
+def wait_ready(stream, entries):
+    """Make ``stream`` wait until every entry's tensors were produced: one
+    wait per submitting stream, on its latest ready event."""
+    latest = {}
+    for e in entries:
+        if e.ready is not None:
+            key, seq, event = e.ready
+            if key not in latest or latest[key][0] < seq:
+                latest[key] = (seq, event)
+    for _, event in latest.values():
+        stream.wait_event(event)
+
+
+class TensorEntry:
+    """One submitted operation. ``tensors`` are dense; for CUDA tensors
+    ``ready`` holds an event recorded on the submitting thread's current
+    stream."""
+
+    __slots__ = ("name", "kind", "tensors", "op", "root_rank", "splits",
+                 "prescale", "postscale", "process_set", "handle",
+                 "enqueue_time", "ready", "device", "site")
+
+    def __init__(self, name, kind, tensors, process_set, op=None,
+                 root_rank=None, splits=None, prescale=None, postscale=None):
+        self.name = name
+        self.kind = kind
+        self.tensors = tensors
+        self.process_set = process_set
+        self.op = op
+        self.root_rank = root_rank   # index within the process set
+        self.splits = splits
+        self.prescale = prescale
+        self.postscale = postscale
+        self.handle = Handle(name)
+        self.enqueue_time = time.monotonic()
+        self.handle.enqueue_time = self.enqueue_time
+        self.site = None
+        self.device = tensors[0].device if tensors else None
+        self.ready = None
+        if self.device is not None and self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            event = torch.cuda.Event()
+            with _READY_LOCK:
+                # (stream, order of recording, event): a waiter needs only
+                # the latest event of each stream.
+                event.record(stream)
+                self.ready = (stream.cuda_stream, next(_READY_SEQ), event)
+
+
+def _nbytes(t):
+    return t.numel() * t.element_size()
+
+
+class Coordinator:
+    def __init__(self, runtime):
+        self.runtime = runtime
+        self.cycle_time_s = envparse.get_float(
+            envparse.CYCLE_TIME, DEFAULT_CYCLE_TIME_MS) / 1000.0
+        self.fusion_threshold = envparse.get_int(
+            envparse.FUSION_THRESHOLD, DEFAULT_FUSION_THRESHOLD)
+        self._queue = []
+        # (process_set_id, name) -> [enqueue_time, callsite] for every
+        # in-flight named op: duplicate detection and the stall scan.
+        self._pending_names = {}
+        self._lock = threading.Lock()
+        self._wakeup = threading.Event()
+        self._running = False
+        self._thread = None
+        self._stream = None   # the Python plane's CUDA stream
+        self._log = get_logger()
+        self.cycles = 0
+        self.busy_s = 0.0     # the native loop's time outside its waits
+        self.submitted = 0
+        self.bytes_processed = 0
+        self.tensors_processed = 0
+        # Stall warning (HOROVOD_TPU_STALL_CHECK_TIME, legacy spelling
+        # STALL_CHECK_TIME_SECONDS; 0 / STALL_CHECK_DISABLE turns it off).
+        if envparse.get_bool(envparse.STALL_CHECK_DISABLE):
+            self.stall_warn_s = 0.0
+        else:
+            self.stall_warn_s = envparse.get_float(
+                envparse.STALL_CHECK_TIME, envparse.get_float(
+                    envparse.STALL_CHECK_TIME_SECONDS,
+                    DEFAULT_STALL_WARN_S))
+        self._stall_scan_period = (max(1.0, min(self.stall_warn_s / 2.0,
+                                                10.0))
+                                   if self.stall_warn_s > 0 else 10.0)
+        self._last_stall_scan = time.monotonic()
+        self._stall_logged = set()
+        self._stall_last_log = -float("inf")
+        # Metrics plane: with HOROVOD_TPU_METRICS off every factory returns
+        # the shared no-op, so the hot paths stay unconditional.
+        self._metrics_on = telemetry.enabled()
+        self._m_cycle_s = telemetry.histogram(
+            "hvd_coordinator_cycle_seconds",
+            "Duration of coordinator cycles that moved tensors")
+        self._m_queue_depth = telemetry.gauge(
+            "hvd_coordinator_queue_depth",
+            "Entries drained from the submission queue by the last cycle")
+        self._m_dispatch_s = telemetry.histogram(
+            "hvd_coordinator_dispatch_seconds",
+            "Backend dispatch latency per operation (span duration)",
+            labelnames=("kind",))
+        self._m_fused_bytes = telemetry.counter(
+            "hvd_coordinator_fused_bytes_total",
+            "Payload bytes through the fusion plane", labelnames=("dtype",))
+        self._m_stalled = telemetry.gauge(
+            "hvd_coordinator_stalled_ops",
+            "In-flight operations older than the stall threshold")
+        self._m_stalled_oldest = telemetry.gauge(
+            "hvd_coordinator_stalled_oldest_age_seconds",
+            "Age of the oldest stalled operation")
+
+    # -- lifecycle ---------------------------------------------------------
+    def start(self):
+        # start() drains a previous cycle thread first, then creates and
+        # starts the new one under the lock, so that a concurrent stop()
+        # never joins a stale thread and two cycle threads never run.
+        with self._lock:
+            if self._running:
+                return
+            prev = self._thread
+        if prev is not None:
+            prev.join(timeout=10)
+        with self._lock:
+            if self._running:
+                return
+            self._running = True
+            self._thread = threading.Thread(
+                target=self._loop, name="hvd-torch-coordinator", daemon=True)
+            self._thread.start()
+
+    def stop(self):
+        with self._lock:
+            if not self._running:
+                return
+            # Flip under the lock so that no submit() slips into a queue
+            # that will never be serviced.
+            self._running = False
+        self._wakeup.set()
+        self._thread.join(timeout=10)
+        with self._lock:
+            stranded = self._queue
+            self._queue = []
+            self._pending_names.clear()
+        for e in stranded:
+            e.handle._fail(HorovodInternalError(
+                "Coordinator shut down with operations in flight"))
+
+    # -- submission (framework-thread side) --------------------------------
+    def submit(self, entry):
+        key = (entry.process_set.process_set_id, entry.name)
+        if entry.name and entry.site is None:
+            entry.site = format_user_frame(skip=3)
+        with self._lock:
+            if not self._running:
+                raise HorovodInternalError(
+                    "Coordinator is shut down; cannot submit operations")
+            if entry.name and key in self._pending_names:
+                raise self._duplicate_error(entry, key)
+            if entry.name:
+                self._pending_names[key] = [entry.enqueue_time, entry.site]
+            self._queue.append(entry)
+            self.submitted += 1
+        self._wakeup.set()
+        return entry.handle
+
+    def _duplicate_error(self, entry, key):
+        return DuplicateNameError(
+            f"Duplicate tensor name {entry.name!r} in flight for process "
+            f"set {entry.process_set.process_set_id}: first submitted at "
+            f"{self._pending_names[key][1]}, duplicate submitted at "
+            f"{entry.site}. Names must be unique among in-flight "
+            "operations (reference: horovod/common/tensor_queue.cc). If "
+            "the name is auto-generated, rank-divergent call orders are "
+            "the usual cause.")
+
+    def _release_name(self, entry):
+        if entry.name:
+            with self._lock:
+                self._pending_names.pop(
+                    (entry.process_set.process_set_id, entry.name), None)
+
+    def _entry_done(self, entry, ok=True):
+        """Native-plane completion callback: release the name before the
+        backend completes the handle."""
+        self._release_name(entry)
+
+    # -- background cycle --------------------------------------------------
+    def _loop(self):
+        dev = self.runtime.device
+        if dev.type != "cuda":
+            self._run_loop()
+            return
+        with torch.cuda.device(dev):
+            self._stream = torch.cuda.Stream(dev)
+            self._run_loop()
+
+    def _run_loop(self):
+        backend = self.runtime.backend
+        if getattr(backend, "drives_own_cycle", False):
+            self._loop_native(backend)
+            return
+        while self._running:
+            self._wakeup.wait(timeout=0.25)
+            self._wakeup.clear()
+            if not self._running:
+                break
+            time.sleep(self.cycle_time_s)
+            self._run_cycle()
+            if self.stall_warn_s > 0:
+                self._check_stalls()
+
+    def _loop_native(self, backend):
+        """Launcher jobs: the native core owns negotiation and fusion
+        (local grouping decisions would diverge across ranks), so every
+        entry goes to the backend and the loop drives cycles (reference:
+        operations.cc:706 RunLoopOnce). Cycles run with nothing in flight
+        too, every ``IDLE_CYCLE_S`` or at the next submission: peers may
+        need this rank to negotiate."""
+        backend.entry_done_cb = self._entry_done
+        backend.runtime = self.runtime   # the timeline, for its spans
+        while self._running:
+            if not (self._queue or backend.pending_count()):
+                self._wakeup.wait(timeout=IDLE_CYCLE_S)
+            self._wakeup.clear()
+            # A cycle time between the first submission and the drain, as on
+            # the Python plane: the submissions of a burst fuse.
+            time.sleep(self.cycle_time_s)
+            t0 = time.perf_counter()
+            with self._lock:
+                batch = self._queue
+                self._queue = []
+            self.cycles += 1
+            cycle_ts_us = time.perf_counter_ns() // 1000
+            try:
+                for e in batch:
+                    backend.submit_entry(e)
+                processed = backend.run_cycle()
+            except Exception as exc:  # noqa: BLE001 - keeps waiters alive
+                # The backend isolates each entry's failures; anything
+                # else would leave every waiter blocked on a dead thread.
+                self._log.exception("native cycle failed")
+                backend.abort_inflight(HorovodInternalError(
+                    f"native cycle failed: {exc}"))
+                processed = 0
+            busy = time.perf_counter() - t0
+            self.busy_s += busy
+            if self._metrics_on and processed:
+                self._m_cycle_s.observe(busy)
+                self._m_queue_depth.set(len(batch))
+            self.tensors_processed += processed
+            self.bytes_processed = backend.core.bytes_processed()
+            timeline = self.runtime.timeline
+            if processed and timeline is not None and timeline.mark_cycles:
+                # Only cycles that moved tensors; idle ticks would flood
+                # the trace.
+                timeline.marker("CYCLE_START", ts_us=cycle_ts_us)
+            if self.stall_warn_s > 0:
+                self._check_stalls()
+
+    def _check_stalls(self, now=None):
+        """Warn about submissions in flight longer than the stall threshold
+        (the Python plane's stall inspector, reference:
+        horovod/common/stall_inspector.cc): feeds the stalled-op gauges and
+        logs one summary per change of the stalled set. Scans at most every
+        ``_stall_scan_period`` seconds."""
+        if now is None:
+            now = time.monotonic()
+        if now - self._last_stall_scan < self._stall_scan_period:
+            return
+        self._last_stall_scan = now
+        with self._lock:
+            stalled = [(key[1], now - info[0], info[1])
+                       for key, info in self._pending_names.items()
+                       if now - info[0] > self.stall_warn_s]
+        if not stalled:
+            self._m_stalled.set(0)
+            self._m_stalled_oldest.set(0.0)
+            self._stall_logged = set()
+            return
+        stalled.sort(key=lambda item: -item[1])
+        oldest_name, oldest_age, oldest_site = stalled[0]
+        self._m_stalled.set(len(stalled))
+        self._m_stalled_oldest.set(oldest_age)
+        current = {name for name, _, _ in stalled}
+        if (current == self._stall_logged
+                and now - self._stall_last_log < self.stall_warn_s):
+            return
+        self._stall_logged = current
+        self._stall_last_log = now
+        self._log.warning(
+            "%d tensor(s) submitted over %.0f s ago have not completed: "
+            "ranks may have diverged (some rank never submitted the "
+            "matching op). Oldest: %s (%.0f s%s). Tune via "
+            "HOROVOD_TPU_STALL_CHECK_TIME.", len(stalled), self.stall_warn_s,
+            oldest_name, oldest_age,
+            f", submitted at {oldest_site}" if oldest_site else "")
+
+    # -- the Python plane (single-process jobs) ----------------------------
+    def _run_cycle(self):
+        with self._lock:
+            batch = self._queue
+            self._queue = []
+        if not batch:
+            return
+        self._m_queue_depth.set(len(batch))
+        self.cycles += 1
+        timeline = self.runtime.timeline
+        if timeline is not None and timeline.mark_cycles:
+            timeline.marker("CYCLE_START")
+        backend = self.runtime.backend
+        fusible = [e for e in batch if e.kind == "allreduce"]
+        others = [e for e in batch if e.kind != "allreduce"]
+        with tele_span((), "CYCLE", histogram=self._m_cycle_s):
+            try:
+                if fusible:
+                    self._run_fused_allreduces(backend, fusible, timeline)
+                for e in others:
+                    self._run_single(backend, e, timeline)
+            finally:
+                # Failure paths: success paths released their names
+                # before completing the handles.
+                with self._lock:
+                    for e in batch:
+                        if e.name:
+                            self._pending_names.pop(
+                                (e.process_set.process_set_id, e.name),
+                                None)
+
+    def _run_fused_allreduces(self, backend, entries, timeline):
+        """Group by (process set, op, scales, dtype) and split each group
+        into buckets under the fusion threshold, a whole entry at a time;
+        one backend call per bucket."""
+        groups = {}
+        for e in entries:
+            pre = 1.0 if e.prescale is None else float(e.prescale)
+            post = 1.0 if e.postscale is None else float(e.postscale)
+            key = (e.process_set.process_set_id, e.op, pre, post,
+                   e.tensors[0].dtype)
+            groups.setdefault(key, []).append(e)
+        for group in groups.values():
+            cur, cur_bytes = [], 0
+            for e in group:
+                b = sum(_nbytes(t) for t in e.tensors)
+                if cur and cur_bytes + b > self.fusion_threshold:
+                    self._execute_allreduce_bucket(backend, cur, timeline)
+                    cur, cur_bytes = [], 0
+                cur.append(e)
+                cur_bytes += b
+            if cur:
+                self._execute_allreduce_bucket(backend, cur, timeline)
+
+    def _issue(self, entries):
+        """Order the cycle's stream after the submitters' streams; returns
+        a context that runs the operation on it."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        wait_ready(self._stream, entries)
+        for e in entries:
+            for t in e.tensors:
+                t.record_stream(self._stream)
+        return torch.cuda.stream(self._stream)
+
+    def _done_event(self):
+        if self._stream is None:
+            return None
+        done = torch.cuda.Event()
+        done.record(self._stream)
+        return done, self._stream.device
+
+    def _execute_allreduce_bucket(self, backend, bucket, timeline):
+        e0 = bucket[0]
+        names = [e.name for e in bucket]
+        try:
+            with tele_span(names, "FUSED_ALLREDUCE", timeline=timeline,
+                           histogram=self._m_dispatch_s.labels(
+                               kind="fused_allreduce")):
+                flat = [t for e in bucket for t in e.tensors]
+                if self._metrics_on:
+                    self._m_fused_bytes.labels(dtype=str(flat[0].dtype)).inc(
+                        sum(_nbytes(t) for t in flat))
+                with self._issue(bucket):
+                    results = backend.allreduce(
+                        flat, e0.op, e0.process_set, prescale=e0.prescale,
+                        postscale=e0.postscale)
+                    done = self._done_event()
+                i = 0
+                for e in bucket:
+                    k = len(e.tensors)
+                    # Release the name BEFORE completing the handle: a
+                    # waiter may resubmit the same name the moment wait()
+                    # returns (reference: the tensor queue erases the entry
+                    # when the response reaches the op layer).
+                    self._release_name(e)
+                    e.handle._complete(results[i:i + k], done)
+                    self.tensors_processed += k
+                    self.bytes_processed += sum(_nbytes(t)
+                                                for t in e.tensors)
+                    i += k
+        except Exception as exc:  # noqa: BLE001 - propagate to handles
+            self._log.error("fused allreduce failed: %s", exc)
+            for e in bucket:
+                e.handle._fail(_wrap_error(exc))
+
+    def _run_single(self, backend, e, timeline):
+        try:
+            with tele_span([e.name], e.kind.upper(), timeline=timeline,
+                           histogram=self._m_dispatch_s.labels(
+                               kind=e.kind)):
+                with self._issue([e]):
+                    out = self._dispatch_single(backend, e)
+                    done = self._done_event()
+                self._release_name(e)
+                e.handle._complete(out, done)
+        except Exception as exc:  # noqa: BLE001
+            self._log.error("%s failed for %s: %s", e.kind, e.name, exc)
+            e.handle._fail(_wrap_error(exc))
+
+    def _dispatch_single(self, backend, e):
+        if e.kind == "allgather":
+            out = backend.allgather(e.tensors, e.process_set)
+        elif e.kind == "broadcast":
+            out = backend.broadcast(e.tensors, e.root_rank, e.process_set)
+        elif e.kind == "alltoall":
+            out = backend.alltoall(e.tensors[0], e.splits, e.process_set)
+        elif e.kind == "reducescatter":
+            out = backend.reducescatter(e.tensors, e.op, e.process_set)
+        elif e.kind == "barrier":
+            backend.barrier(e.process_set)
+            out = None
+        else:
+            raise ValueError(f"Unknown op kind {e.kind}")
+        self.tensors_processed += len(e.tensors)
+        self.bytes_processed += sum(_nbytes(t) for t in e.tensors)
+        return out
+
+
+def _wrap_error(exc):
+    if isinstance(exc, (HorovodInternalError, DuplicateNameError,
+                        ValueError)):
+        return exc
+    return HorovodInternalError(str(exc))

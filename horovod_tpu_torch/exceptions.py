@@ -18,3 +18,15 @@ class NotInitializedError(RuntimeError):
         super().__init__(
             f"{what} called before init(); call horovod_tpu_torch.init() "
             "first.")
+
+
+class DuplicateNameError(ValueError):
+    """Two in-flight tensors share a name within one process set (reference:
+    horovod/common/common.h:229 DUPLICATE_NAME_ERROR, tensor_queue.cc)."""
+
+
+class StalledTensorError(HorovodInternalError):
+    """A named tensor was submitted by some ranks but not all within the
+    stall-shutdown time (reference: horovod/common/stall_inspector.cc:26).
+    A ``HorovodInternalError``, so that elastic recovery catches it like
+    any other failed collective."""

@@ -1,1 +1,2 @@
-"""Collectives, bucketing and the CUDA attention kernels of the port."""
+"""Collectives, reduction ops, compression markers and the CUDA attention
+kernels of the port."""

@@ -3,9 +3,11 @@
 
 Every rank of the job registers the same sets in the same order
 (``add_process_set`` is collective, as in the reference): each set gets an
-id from the runtime's table and its own ``torch.distributed`` group. A
-collective on a set runs among its members only; a rank outside the set
-that calls it gets an error, as from the JAX package's native core.
+id from the runtime's table, and in a launcher job it is registered with
+the native core, which negotiates on it once every rank has, and (on the
+delegated plane) gets its own ``torch.distributed`` group. A collective on
+a set runs among its members only; a rank outside the set that calls it
+gets an error from the native core.
 """
 
 import threading

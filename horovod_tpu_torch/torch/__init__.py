@@ -2,24 +2,26 @@
 user scripts import as ``hvd`` (port of ``horovod_tpu/torch/__init__.py``;
 reference: horovod/torch/mpi_ops.py, horovod/torch/optimizer.py).
 
-Tensors go to the data plane as they are: NCCL for CUDA tensors, gloo for
-CPU tensors, a loopback at size 1. Results keep the input's dtype and
-device. Async ops return a handle at once; ``synchronize(handle)`` returns
-the result (written back in place for the ``*_`` spellings) and
-``poll(handle)`` never blocks. On CUDA, ``synchronize`` makes the caller's
-stream wait for the transfer; the host does not wait.
+Every collective goes through the runtime's coordinator: named, fused and,
+in a launcher job, negotiated across ranks by the native core before NCCL
+(CUDA tensors), the native TCP ring or gloo (CPU tensors) executes it.
+Results keep the input's dtype and device. Async ops return a handle at
+once; ``synchronize(handle)`` returns the result (written back in place
+for the ``*_`` spellings) and ``poll(handle)`` never blocks. On CUDA,
+``synchronize`` makes the caller's stream wait for the transfer; the host
+waits only until the collective has been issued.
 
 ``DistributedOptimizer`` is the reference's grad-hook wrapper: each
-parameter's post-accumulate-grad hook marks its gradient ready, and a
-fusion bucket (``ops/bucketing.py``) is packed and its allreduce launched
-when its last member is ready, while backward still runs; ``step()`` waits
-for the buckets and runs the inner update.
+parameter's post-accumulate-grad hook submits
+``allreduce_async_(grad, name=f"grad.{name}")`` while backward still runs,
+and ``step()`` synchronizes every handle before the inner update. Ranks may
+produce their gradients in different orders: the native core pairs them
+by name.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
 item: sparse allreduce (item 10; ``sparse_as_dense=True`` densifies),
 compression other than ``Compression.none`` (item 9), Adasum (item 10),
-the timeline (item 8), ``metrics_snapshot`` (item 13) and ``elastic``
-(item 11).
+``metrics_snapshot`` (item 13) and ``elastic`` (item 11).
 """
 
 import functools
@@ -28,7 +30,6 @@ import torch
 
 from .. import basics
 from .. import functions as _functions
-from ..backend import Work
 from ..basics import (ccl_built, cross_rank, cross_size, cuda_built,
                       ddl_built, gloo_built, gloo_enabled, init,
                       is_homogeneous, is_initialized, local_rank, local_size,
@@ -37,11 +38,11 @@ from ..basics import (ccl_built, cross_rank, cross_size, cuda_built,
 from ..ops import collectives as _c
 from ..ops import compression as _compression
 from ..ops import reduce_ops
-from ..ops.bucketing import DEFAULT_BUCKET_BYTES, GradBuckets
 from ..ops.collectives import poll, synchronize
 from ..ops.compression import Compression
 from ..process_sets import (ProcessSet, add_process_set, global_process_set,
                             remove_process_set)
+from ..exceptions import DuplicateNameError, StalledTensorError  # noqa: F401
 from ..utils import envparse
 from ..utils.logging_util import get_logger
 from .compile import tpu_compile
@@ -59,12 +60,37 @@ def _not_ported(what, item):
         f"{what} is not ported yet (ROADMAP queue A, item {item})")
 
 
+def _spmd():
+    """A launcher job, at any size: the native core negotiates (the JAX
+    package's rule, without its size > 1: a one-rank launcher job runs the
+    native plane here)."""
+    return basics.runtime().mode == basics.MODE_SPMD
+
+
 def start_timeline(file_path, mark_cycles=None, jax_profiler_dir=None):
-    raise _not_ported("the timeline", 8)
+    """Start recording a Chrome-trace timeline (reference:
+    horovod/common/basics.py:156). ``jax_profiler_dir`` keeps the JAX
+    package's name: a ``torch.profiler`` trace of the host and the card is
+    written there beside the timeline. ``mark_cycles`` defaults to
+    ``HVDTPU_TIMELINE_MARK_CYCLES``."""
+    from ..timeline import Timeline
+    rt = basics.runtime()
+    if rt.timeline is not None:
+        rt.timeline.stop()
+    if mark_cycles is None:
+        mark_cycles = envparse.get_bool(envparse.TIMELINE_MARK_CYCLES)
+    rt.timeline = Timeline(file_path, profiler_dir=jax_profiler_dir,
+                           mark_cycles=mark_cycles)
+    rt.timeline.start()
 
 
 def stop_timeline():
-    raise _not_ported("the timeline", 8)
+    """Stop the runtime timeline (reference: horovod/common/basics.py
+    stop_timeline)."""
+    rt = basics.runtime()
+    if rt.timeline is not None:
+        rt.timeline.stop()
+        rt.timeline = None
 
 
 def metrics_snapshot():
@@ -219,10 +245,10 @@ def alltoall_async(tensor, splits=None, name=None,
                    process_set=global_process_set):
     """Handle resolving to the received tensor, or to ``(received,
     received_splits)`` when ``splits`` was given."""
-    work = _c.alltoall_async(tensor, splits, name, process_set)
+    handle = _c.alltoall_async(tensor, splits, name, process_set)
     if splits is not None:
-        return work
-    return Work([work], lambda: work.wait()[0])
+        return handle
+    return _c.then(handle, lambda r: r[0])
 
 
 def alltoall(tensor, splits=None, name=None, process_set=global_process_set):
@@ -235,10 +261,9 @@ def reducescatter(tensor, op=None, name=None,
 
 
 def join(device=-1):
-    """A barrier; returns the last rank to join, -1 when the job has one
-    rank (as the JAX package's torch binding answers outside a
-    multi-process job)."""
-    if basics.size() == 1:
+    """The last rank to join, through the native core; -1 in a
+    single-process job (as the JAX package's torch binding answers there)."""
+    if not _spmd():
         return -1
     return _c.join(device)
 
@@ -293,20 +318,21 @@ def DistributedOptimizer(optimizer, named_parameters=None,
                          process_set=global_process_set):
     """Wrap ``optimizer`` in place so that its ``step()`` applies gradients
     averaged (or summed, ``op=Sum``) across the set (reference:
-    horovod/torch/optimizer.py:36-275).
+    horovod/torch/optimizer.py:36-275; the JAX package's binding,
+    ``horovod_tpu/torch/__init__.py:725-811``).
 
-    Each optimizer-owned parameter that requires grad gets a
-    post-accumulate-grad hook. Every ``backward_passes_per_step``-th time
-    it fires, the gradient is ready, and a fusion bucket of
-    ``HVDTPU_BUCKET_BYTES`` (default 16 MiB; it takes the place of
-    ``num_groups``/``groups``) is packed and its allreduce launched when
-    its last member is ready. ``step()`` (and ``synchronize()``) waits for
-    every bucket, then runs the inner update. Gradients are multiplied by
-    ``1 / gradient_predivide_factor`` before the sum and by
-    ``gradient_predivide_factor / backward_passes_per_step`` after the
-    average. Hooks are registered only when the job has more than one
-    rank. Every rank must run the same backward, so that the buckets
-    launch in the same order everywhere.
+    In a launcher job each optimizer-owned parameter that requires grad gets
+    a post-accumulate-grad hook. Every ``backward_passes_per_step``-th time
+    it fires, it submits ``allreduce_async_(grad, name=f"grad.{name}")``;
+    the coordinator's native core fuses the gradients under
+    ``HVDTPU_FUSION_THRESHOLD`` (this takes the place of
+    ``num_groups``/``groups``) and pairs them across ranks by name, so the
+    ranks' backward passes may produce them in any order. ``step()`` (and
+    ``synchronize()``) waits for every handle, then runs the inner update.
+    Gradients are multiplied by ``1 / gradient_predivide_factor`` before
+    the sum and by ``gradient_predivide_factor / backward_passes_per_step``
+    after the average. In a single-process job no hook is registered and
+    the update is the inner one.
     """
     _compression.check(compression)
     if op == Adasum:
@@ -330,9 +356,9 @@ def DistributedOptimizer(optimizer, named_parameters=None,
         named = [(f"param.{gi}.{pi}", p)
                  for gi, group in enumerate(optimizer.param_groups)
                  for pi, p in enumerate(group["params"])]
-    covered = {p for _, p in named}
+    name_of = {p: n for n, p in named}
     owned = [p for group in optimizer.param_groups for p in group["params"]]
-    if any(p.requires_grad and p not in covered for p in owned):
+    if any(p.requires_grad and p not in name_of for p in owned):
         raise ValueError(
             "named_parameters does not cover all optimizer parameters; pass "
             "model.named_parameters() for the whole model behind this "
@@ -343,13 +369,15 @@ def DistributedOptimizer(optimizer, named_parameters=None,
         _hvd_wrapped = True
 
         def synchronize(self):
-            """Wait for every gradient bucket: ``.grad`` holds the reduced
-            values."""
-            if self._hvd_buckets is not None:
-                self._hvd_buckets.wait()
+            """Wait for every submitted gradient: ``.grad`` holds the
+            reduced values."""
+            for handle in list(self._hvd_handles.values()):
+                _c.synchronize(handle)
+            self._hvd_handles.clear()
 
         def step(self, closure=None):
-            self.synchronize()
+            if not self._hvd_sync_disabled:
+                self.synchronize()
             return cls.step(self, closure)
 
     optimizer.__class__ = _Distributed
@@ -360,45 +388,45 @@ def DistributedOptimizer(optimizer, named_parameters=None,
     if inst_step is not None:
         @functools.wraps(inst_step)
         def _dist_inst_step(closure=None):
-            optimizer.synchronize()
+            if not optimizer._hvd_sync_disabled:
+                optimizer.synchronize()
             return inst_step() if closure is None else inst_step(closure)
         optimizer.step = _dist_inst_step
 
     optimizer._hvd_backward_passes = k
-    optimizer._hvd_sync_disabled = basics.size() == 1
-    optimizer._hvd_buckets = None
+    optimizer._hvd_sync_disabled = not _spmd()
+    optimizer._hvd_handles = {}
     optimizer._hvd_hook_handles = []
     if optimizer._hvd_sync_disabled:
         return optimizer
-    owned_ids = {id(p) for p in owned}
-    params = [p for _, p in named if p.requires_grad and id(p) in owned_ids]
     prescale, postscale = 1.0, 1.0
     if gradient_predivide_factor != 1.0:
         prescale = 1.0 / gradient_predivide_factor
         postscale = gradient_predivide_factor
     postscale /= k
-    buckets = GradBuckets(
-        params, op, prescale=prescale, postscale=postscale,
-        bucket_bytes=envparse.get_int(envparse.BUCKET_BYTES,
-                                      DEFAULT_BUCKET_BYTES),
-        process_set=process_set)
-    optimizer._hvd_buckets = buckets
     passes = {}
 
     def hook(p):
         passes[p] = passes.get(p, 0) + 1
-        if passes[p] % k:
+        if passes[p] % k or p.grad is None:
             return
         if p.grad.is_sparse:
             if not sparse_as_dense:
                 raise _not_ported("sparse gradients without "
                                   "sparse_as_dense=True", 10)
             p.grad = p.grad.to_dense()
-        buckets.ready(p)
+        optimizer._hvd_handles[p] = _c.allreduce_async_(
+            p.grad, op=op, name=f"grad.{name_of[p]}",
+            prescale_factor=prescale, postscale_factor=postscale,
+            process_set=process_set)
 
-    for p in params:
-        optimizer._hvd_hook_handles.append(
-            p.register_post_accumulate_grad_hook(hook))
+    owned_ids = {id(p) for p in owned}
+    for _, p in named:
+        # Only optimizer-owned parameters: named_parameters may cover the
+        # whole model while this optimizer trains a part of it.
+        if p.requires_grad and id(p) in owned_ids:
+            optimizer._hvd_hook_handles.append(
+                p.register_post_accumulate_grad_hook(hook))
     return optimizer
 
 

@@ -14,8 +14,8 @@ is ``horovod_tpu_torch.torch.DistributedOptimizer``; the train step takes
 either.
 """
 
+from . import basics
 from .ops import reduce_ops
-from .ops.bucketing import DEFAULT_BUCKET_BYTES, bucketed_allreduce_
 from .ops.collectives import allreduce, grouped_allreduce_
 from .process_sets import global_process_set
 from .utils import envparse
@@ -38,9 +38,11 @@ class DistributedOptimizer:
         raises.
       process_set: the ranks that reduce together (default all).
 
-    Gradients are reduced in buckets of ``HVDTPU_BUCKET_BYTES`` (default
-    16 MiB) after backward; the result is bit-identical to reducing each
-    tensor on its own.
+    In a launcher job the gradients are reduced after backward by one
+    grouped allreduce named ``grad`` through the coordinator, whose native
+    core fuses them into buckets under ``HVDTPU_FUSION_THRESHOLD``; in a
+    single-process job the reduction is the identity (the JAX package's
+    ``_reduce``, ``horovod_tpu/jax/__init__.py:291-304``).
     """
 
     def __init__(self, optimizer, op=reduce_ops.Average,
@@ -67,8 +69,6 @@ class DistributedOptimizer:
             raise ValueError("backward_passes_per_step must be >= 1")
         self.prescale = prescale_factor
         self.postscale = postscale_factor
-        self._bucket_bytes = envparse.get_int(envparse.BUCKET_BYTES,
-                                              DEFAULT_BUCKET_BYTES)
         self._passes = 0
 
     def zero_grad(self, set_to_none=True):
@@ -89,9 +89,11 @@ class DistributedOptimizer:
         if self.k > 1:
             for g in grads:
                 g.div_(self.k)
-        bucketed_allreduce_(grads, self.op, bucket_bytes=self._bucket_bytes,
-                            prescale=self.prescale, postscale=self.postscale,
-                            process_set=self.process_set)
+        if basics.runtime().mode == basics.MODE_SPMD:
+            grouped_allreduce_(grads, op=self.op, name="grad",
+                               prescale_factor=self.prescale or 1.0,
+                               postscale_factor=self.postscale or 1.0,
+                               process_set=self.process_set)
 
     def step(self):
         """Count one backward pass; on every k-th, reduce the accumulated
@@ -145,6 +147,6 @@ def make_train_step(loss_fn, dist_opt, has_aux=False):
         if has_aux:
             aux = [b for b in model.buffers() if b.is_floating_point()]
             if aux:
-                grouped_allreduce_(aux, op=reduce_ops.Average)
-        return allreduce(loss.detach(), op=reduce_ops.Average)
+                grouped_allreduce_(aux, op=reduce_ops.Average, name="aux")
+        return allreduce(loss.detach(), op=reduce_ops.Average, name="loss")
     return step

@@ -48,6 +48,17 @@ def get_int(name, default=0):
         return default
 
 
+def get_float(name, default=0.0):
+    val = get_env(name)
+    if val is None or val == "":
+        return default
+    try:
+        return float(val)
+    except ValueError:
+        _warn_malformed(name, val, default)
+        return default
+
+
 def get_bool(name, default=False):
     val = get_env(name)
     if val is None:
@@ -78,14 +89,54 @@ def register(name, default, doc):
 
 LOG_LEVEL = register(
     "LOG_LEVEL", "warning", "trace/debug/info/warning/error")
-BUCKET_BYTES = register(
-    "BUCKET_BYTES", "16 MiB",
-    "Payload bytes per gradient bucket of DistributedOptimizer's "
-    "reduction")
 ZERO = register(
     "ZERO", "0",
     "ZeRO-1 cross-replica sharded weight update (not ported yet: "
     "DistributedOptimizer raises when it is on)")
+
+# -- control plane (coordinator, native core) --------------------------------
+CYCLE_TIME = register(
+    "CYCLE_TIME", "1.0 ms",
+    "Background cycle period in ms (reference: HOROVOD_CYCLE_TIME)")
+FUSION_THRESHOLD = register(
+    "FUSION_THRESHOLD", "128 MiB",
+    "Fusion buffer cap in bytes (reference: HOROVOD_FUSION_THRESHOLD)")
+CACHE_CAPACITY = register(
+    "CACHE_CAPACITY", "1024",
+    "Response cache entries (reference: HOROVOD_CACHE_CAPACITY)")
+HIERARCHICAL_THRESHOLD = register(
+    "HIERARCHICAL_THRESHOLD", "1 MiB",
+    "Minimum bytes for the two-level (intra-host / cross-host) allreduce "
+    "and allgather on the TCP plane; 0 disables")
+CPU_OPERATIONS = register(
+    "CPU_OPERATIONS", "tcp",
+    "Data plane of CPU tensors in a launcher job: tcp (default: the native "
+    "ring) or nccl/xla/xla-global (the delegated plane, over gloo)")
+TIMELINE = register(
+    "TIMELINE", "", "Path of the Chrome-trace timeline written at init")
+TIMELINE_MARK_CYCLES = register(
+    "TIMELINE_MARK_CYCLES", "off", "Mark each cycle in the timeline")
+STALL_CHECK_DISABLE = register(
+    "STALL_CHECK_DISABLE", "0", "Disable the stall warning")
+STALL_CHECK_TIME = register(
+    "STALL_CHECK_TIME", "60",
+    "Seconds before an in-flight tensor is reported as stalled "
+    "(HOROVOD_TPU_STALL_CHECK_TIME; 0 disables)")
+STALL_CHECK_TIME_SECONDS = register(
+    "STALL_CHECK_TIME_SECONDS", "60",
+    "Reference spelling of STALL_CHECK_TIME; also the native core's "
+    "stall-warning time")
+STALL_SHUTDOWN_TIME_SECONDS = register(
+    "STALL_SHUTDOWN_TIME_SECONDS", "0",
+    "Fail a tensor stalled this long (0 = never)")
+METRICS = register(
+    "METRICS", "0",
+    "Collect the coordinator's and the backends' metrics (HOROVOD_TPU_"
+    "METRICS); off, every metric is a shared no-op")
+LEGACY_AUTO_NAMES = register(
+    "LEGACY_AUTO_NAMES", "0",
+    "Name unnamed collectives by a process-global counter instead of by "
+    "call site")
 
 # -- kernels ----------------------------------------------------------------
 BRIDGE_FLASH = register(
@@ -110,3 +161,4 @@ LOCAL_RANK = "LOCAL_RANK"
 LOCAL_SIZE = "LOCAL_SIZE"
 CROSS_RANK = "CROSS_RANK"
 CROSS_SIZE = "CROSS_SIZE"
+PEERS = "PEERS"   # "host:port,..." of every rank's native-core listener

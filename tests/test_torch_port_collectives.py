@@ -1,5 +1,10 @@
 """gloo jobs of the port on the CPU (worker body: tests/torch_port_worker.py).
 
+Each job is a launcher job (``HVDTPU_PEERS`` from a rendezvous of reserved
+ports): every collective goes through the coordinator, the native core
+negotiates and fuses, and gloo executes (the delegated plane the card runs
+with NCCL). The checks:
+
 - 2 ranks: allreduce Average/Sum with pre/postscale, grouped allreduce,
   broadcast, ragged allgather, object collectives, broadcast_parameters,
   one data-parallel train step that must equal the single-process
@@ -15,11 +20,13 @@
 Each job runs once per module; each check is its own test case.
 """
 
-import socket
+import shutil
+import tempfile
 
 import pytest
 import torch.multiprocessing as mp
 
+import torch_port_launch
 import torch_port_worker
 
 CHECKS = ["sum", "avg", "scaled", "scaled_avg", "input_untouched",
@@ -41,24 +48,20 @@ SET_CHECKS = ["set_ids", "subset_allreduce", "subset_broadcast",
               "subset_allgather", "set_removed", "global_allreduce_after"]
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _run_job(size, checks, device="cpu"):
+def _run_job(size, checks, device="cpu", target=None):
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=torch_port_worker.run,
-                         args=(r, size, port, queue, device))
+    port = torch_port_launch.free_port()
+    rdv = tempfile.mkdtemp(prefix="hvd-rdv-")
+    procs = [ctx.Process(target=target or torch_port_worker.run,
+                         args=(r, size, rdv, port, queue, device))
              for r in range(size)]
     for p in procs:
         p.start()
     try:
-        results = dict(queue.get(timeout=120) for _ in procs)
+        results = dict(queue.get(timeout=180) for _ in procs)
     finally:
+        shutil.rmtree(rdv, ignore_errors=True)
         for p in procs:
             p.join(timeout=60)
             if p.is_alive():

@@ -268,8 +268,11 @@ def test_async_allreduce_handles_on_cuda(hvd_cuda, dtype):
     hvd = hvd_cuda
     x = torch.arange(8, device="cuda").to(dtype)
     h = hvd.allreduce_async_(x, op=hvd.Sum, prescale_factor=2.0)
-    assert hvd.poll(h) is True
+    # The coordinator's cycle thread runs the op: poll never blocks, and is
+    # True once synchronize has returned.
+    assert isinstance(hvd.poll(h), bool)
     out = hvd.synchronize(h)
+    assert hvd.poll(h) is True
     assert out is x and _on_card(out, x)
     assert torch.equal(x, 2 * torch.arange(8, device="cuda").to(dtype))
     y = hvd.synchronize(hvd.allreduce_async(x, postscale_factor=0.5))

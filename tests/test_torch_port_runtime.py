@@ -25,9 +25,10 @@ def cpu_runtime():
 
 
 def test_import_pulls_in_no_jax_and_no_horovod_tpu():
-    code = ("import sys, horovod_tpu_torch, horovod_tpu_torch.models, "
-            "horovod_tpu_torch.train, horovod_tpu_torch.torch, "
-            "horovod_tpu_torch.torch.compile\n"
+    code = ("import sys, pkgutil, importlib, horovod_tpu_torch\n"
+            "for m in pkgutil.walk_packages(horovod_tpu_torch.__path__, "
+            "'horovod_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'horovod_tpu' or "
             "m.startswith('horovod_tpu.')]\n"
@@ -166,13 +167,17 @@ def test_knobs_and_reduce_ops_match_the_jax_package():
     assert tenv._PREFIXES == jenv._PREFIXES
     # The port declares the knobs it reads, each under the JAX package's
     # name and default.
-    assert set(tenv.KNOBS) == {"LOG_LEVEL", "BUCKET_BYTES", "ZERO",
-                               "BRIDGE_FLASH", "FLASH_DROPOUT"}
+    assert set(tenv.KNOBS) == {
+        "LOG_LEVEL", "ZERO", "BRIDGE_FLASH", "FLASH_DROPOUT", "CYCLE_TIME",
+        "FUSION_THRESHOLD", "CACHE_CAPACITY", "HIERARCHICAL_THRESHOLD",
+        "CPU_OPERATIONS", "TIMELINE", "TIMELINE_MARK_CYCLES",
+        "STALL_CHECK_DISABLE", "STALL_CHECK_TIME", "STALL_CHECK_TIME_SECONDS",
+        "STALL_SHUTDOWN_TIME_SECONDS", "METRICS", "LEGACY_AUTO_NAMES"}
     for name, knob in tenv.KNOBS.items():
         assert getattr(tenv, name) == name
         assert knob["default"] == jenv.KNOBS[name]["default"]
     for name in ("RANK", "SIZE", "LOCAL_RANK", "LOCAL_SIZE", "CROSS_RANK",
-                 "CROSS_SIZE"):
+                 "CROSS_SIZE", "PEERS"):
         assert getattr(tenv, name) == getattr(jenv, name)
     for name in ("Average", "Sum", "Adasum", "Min", "Max", "Product"):
         op = getattr(tops, name)

@@ -10,7 +10,6 @@ a 2-rank gloo job.
 
 import os
 import pkgutil
-import socket
 import subprocess
 import sys
 import types
@@ -23,6 +22,7 @@ import torch.multiprocessing as mp
 
 import horovod_tpu_torch
 import horovod_tpu_torch.torch as pt
+import torch_port_launch
 import torch_port_worker
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -140,7 +140,16 @@ def test_in_place_spellings_write_back_as_the_jax_package(both, call):
 
 
 def test_poll_is_true_at_once_at_size_one(port):
+    # Every collective goes through the coordinator's cycle thread, also at
+    # size 1: poll never blocks, and turns True once the cycle has run the
+    # operation, without a synchronize.
+    import time
     h = port.allreduce_async(_x())
+    assert isinstance(port.poll(h), bool)
+    deadline = time.monotonic() + 30
+    while not port.poll(h):
+        assert time.monotonic() < deadline, "the cycle never ran the op"
+        time.sleep(0.001)
     assert port.poll(h) is True
     assert torch.equal(port.synchronize(h), _x())
 
@@ -187,14 +196,35 @@ def test_every_public_name_of_the_jax_package_binding():
         op=m.Adasum), 10),
     (lambda m: m.sparse_allreduce_async(_x().to_sparse()), 10),
     (lambda m: m.allreduce(_x().to_sparse()), 10),
-    (lambda m: m.start_timeline("t.json"), 8),
-    (lambda m: m.stop_timeline(), 8),
     (lambda m: m.metrics_snapshot(), 13),
     (lambda m: m.elastic, 11),
 ])
 def test_modes_not_ported_raise_with_their_roadmap_item(port, call, item):
     with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
         call(port)
+
+
+@pytest.mark.parametrize("profile", [False, True])
+def test_start_and_stop_timeline_write_a_chrome_trace(port, tmp_path,
+                                                      profile):
+    # The timeline is ported: collectives between start and stop appear
+    # as begin/end pairs on their tensor's lane; with a profiler directory
+    # a torch.profiler trace is written beside it.
+    import json
+    path = tmp_path / "timeline.json"
+    prof = tmp_path / "prof" if profile else None
+    port.start_timeline(str(path), jax_profiler_dir=prof and str(prof))
+    port.allreduce(_x(), name="tl.a")
+    port.broadcast(_x(), 0, name="tl.b")
+    port.stop_timeline()
+    events = json.loads(path.read_text())
+    by = {(e["args"]["tensor"], e["name"], e["ph"]) for e in events}
+    assert {("tl.a", "FUSED_ALLREDUCE", "B"), ("tl.a", "FUSED_ALLREDUCE", "E"),
+            ("tl.b", "BROADCAST", "B"), ("tl.b", "BROADCAST", "E")} <= by
+    if profile:
+        (trace,) = prof.iterdir()
+        assert "traceEvents" in json.loads(trace.read_text())
+
 
 
 def test_compression_none_is_accepted(port):
@@ -283,14 +313,12 @@ def test_pytorch_mnist_example_runs_on_the_port(port, capsys):
     assert len(losses) == 2 and all(np.isfinite(losses))
 
 
-def test_pytorch_mnist_example_runs_on_two_ranks():
+def test_pytorch_mnist_example_runs_on_two_ranks(tmp_path):
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    port = torch_port_launch.free_port()
     procs = [ctx.Process(target=torch_port_worker.run_example,
-                         args=(r, 2, port, queue, EXAMPLE))
+                         args=(r, 2, str(tmp_path), port, queue, EXAMPLE))
              for r in range(2)]
     for p in procs:
         p.start()

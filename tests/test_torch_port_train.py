@@ -1,10 +1,11 @@
 """Port training step against the JAX package's: 3 AdamW steps of the port
 (size 1, loopback, CPU) against 3 steps of JAX ``make_train_step`` with
 ``DistributedOptimizer(optax.adamw(1e-4))`` on the 8-device CPU mesh, from
-the same flax weights on the same batch. Also: the bucketed reduction is
-bit-identical to the per-tensor one (the contract of tests/test_overlap.py),
-the bucket planner matches the JAX package's, and local accumulation equals
-one step on the whole batch.
+the same flax weights on the same batch. Also: the reduction through the
+coordinator is bit-identical to the per-tensor one (the contract of
+tests/test_overlap.py) and is one grouped submission, the identity in a
+single-process job, and local accumulation equals one step on the whole
+batch.
 
 Tolerances: losses 1e-5 and parameters 2e-6. fp32 throughout; the
 gradients differ only by summation order (~1e-6 relative, see
@@ -22,11 +23,9 @@ import torch
 import horovod_tpu_torch as thvd
 from horovod_tpu.models import TransformerConfig as JConfig
 from horovod_tpu.models import TransformerLM as JLM
-from horovod_tpu.ops import bucketing as jbucketing
 from horovod_tpu_torch import basics, train
 from horovod_tpu_torch.models import (TransformerConfig, TransformerLM,
                                       params_from_flax)
-from horovod_tpu_torch.ops import bucketing as tbucketing
 
 SMALL = dict(vocab_size=128, hidden=64, layers=2, heads=4, max_len=16,
              causal=True, use_rope=True)
@@ -103,22 +102,27 @@ def test_three_steps_match_jax_make_train_step(hvd, port):
                                    atol=2e-6, rtol=2e-6, err_msg=name)
 
 
+def _as_launcher_job(monkeypatch):
+    # The loopback backend behind a runtime that says "spmd": the
+    # optimizer then reduces through the coordinator as in a launcher job,
+    # while the reduction over one rank stays the scaling alone.
+    monkeypatch.setattr(basics.runtime(), "mode", basics.MODE_SPMD)
+
+
 def test_bucketed_reduction_is_bit_identical(port, monkeypatch):
-    # DistributedOptimizer reduces in buckets; a hand-written loop reduces
-    # each gradient on its own. Size 2 on the loopback backend makes the
-    # buckets pack and unpack (size 1 skips packing) while the reduction
-    # stays the scaling alone, so the two runs must agree bit for bit.
-    monkeypatch.setattr(basics, "size", lambda: 2)
-    monkeypatch.setenv("HVDTPU_BUCKET_BYTES", "4096")
+    # DistributedOptimizer reduces every gradient in one grouped submission
+    # that the coordinator fuses; a hand-written loop reduces each gradient
+    # on its own. Both must agree bit for bit.
+    _as_launcher_job(monkeypatch)
     cfg = TransformerConfig(**SMALL, dtype=torch.float32)
     x, y = _data()
     batch = (torch.as_tensor(x), torch.as_tensor(y))
-    scales = dict(prescale_factor=0.5, postscale_factor=2.0)
+    scales = dict(prescale_factor=0.5, postscale_factor=3.0)
     runs = {}
-    for bucketed in (False, True):
+    for fused in (False, True):
         model = TransformerLM(cfg, generator=torch.Generator().manual_seed(0))
         opt = _adamw(model)
-        if bucketed:
+        if fused:
             step = thvd.make_train_step(
                 _loss_fn, thvd.DistributedOptimizer(opt, **scales))
             losses = [step(model, batch).item() for _ in range(STEPS)]
@@ -127,45 +131,40 @@ def test_bucketed_reduction_is_bit_identical(port, monkeypatch):
             for _ in range(STEPS):
                 loss = _loss_fn(model, batch)
                 loss.backward()
-                thvd.grouped_allreduce_([p.grad for p in model.parameters()],
-                                        op=thvd.Average, **scales)
+                for p in model.parameters():
+                    thvd.allreduce_(p.grad, op=thvd.Average, **scales)
                 opt.step()
                 opt.zero_grad()
                 losses.append(loss.item())
-        runs[bucketed] = (losses, [p.detach().clone()
-                                   for p in model.parameters()])
+        runs[fused] = (losses, [p.detach().clone()
+                                for p in model.parameters()])
     assert runs[False][0] == runs[True][0]
     for a, b in zip(runs[False][1], runs[True][1]):
         assert torch.equal(a, b)
-    grads = [p.detach() for p in model.parameters()]
-    assert len(tbucketing.plan_buckets(grads, 4096)) > 1
 
 
 def test_size_one_reduction_scales_without_packing(port, monkeypatch):
-    monkeypatch.setattr(tbucketing, "plan_buckets",
-                        lambda *a, **k: pytest.fail("packed at size 1"))
-    grads = [torch.arange(6.0).reshape(2, 3), torch.ones(4)]
-    out = tbucketing.bucketed_allreduce_(grads, thvd.Average, prescale=0.5,
-                                         postscale=3.0)
-    assert out[0] is grads[0] and out[1] is grads[1]
-    assert torch.equal(grads[0], 1.5 * torch.arange(6.0).reshape(2, 3))
-    assert torch.equal(grads[1], torch.full((4,), 1.5))
-
-
-def test_plan_buckets_matches_the_jax_package():
-    shapes = [(3, 5), (7,), (), (64, 64), (2, 3, 4), (100,), (1,), (33, 9)]
-    dtypes = [np.float32, np.float32, np.float32, np.float32, np.float16,
-              np.float32, np.float16, np.float32]
-    leaves = [np.zeros(s, d) for s, d in zip(shapes, dtypes)]
-    tdtype = {np.float32: torch.float32, np.float16: torch.float16}
-    tleaves = [torch.zeros(s, dtype=tdtype[d]) for s, d in zip(shapes, dtypes)]
-    for budget in (1, 64, 600, 20000, 1 << 30):
-        for reverse in (True, False):
-            want = jbucketing.plan_buckets(
-                [jnp.asarray(a) for a in leaves], budget, reverse)
-            got = tbucketing.plan_buckets(tleaves, budget, reverse)
-            assert [(b.indices, b.nbytes) for b in got] == \
-                [(b.indices, b.nbytes) for b in want]
+    # The optimizer packs nothing itself: in a launcher job it submits the
+    # gradients as one grouped allreduce named "grad" (the coordinator
+    # fuses), which applies the scales; in a single-process job the
+    # reduction is the identity (the JAX package's _reduce).
+    coord = basics.runtime().coordinator
+    params = [torch.nn.Parameter(torch.zeros(2, 3)),
+              torch.nn.Parameter(torch.zeros(4))]
+    want = [torch.arange(6.0).reshape(2, 3), torch.ones(4)]
+    for mode, factor in ((basics.MODE_SINGLE, 1.0),
+                         (basics.MODE_SPMD, 1.5)):
+        monkeypatch.setattr(basics.runtime(), "mode", mode)
+        for p, g in zip(params, want):
+            p.grad = g.clone()
+        opt = train.DistributedOptimizer(
+            torch.optim.SGD(params, lr=0.1), prescale_factor=0.5,
+            postscale_factor=3.0)
+        before = coord.submitted
+        opt.synchronize()
+        assert coord.submitted - before == (mode == basics.MODE_SPMD)
+        for p, g in zip(params, want):
+            assert torch.equal(p.grad, factor * g)
 
 
 def test_local_accumulation_equals_one_step_on_the_whole_batch(port):

@@ -1,10 +1,13 @@
-"""Worker body of tests/test_torch_port_collectives.py: one rank of a gloo
-job on the CPU (2 ranks for the collectives, the torch API, SyncBatchNorm
-and the optimizers; 3 for process sets, which need a proper subset).
+"""Worker body of tests/test_torch_port_collectives.py: one rank of a
+launcher job on the CPU whose collectives the native core negotiates and
+gloo executes (``HVDTPU_CPU_OPERATIONS=nccl``, the delegated plane the card
+runs with NCCL); 2 ranks for the collectives, the torch API, SyncBatchNorm
+and the optimizers, 3 for process sets, which need a proper subset.
 Imports only torch, numpy and the port, so that spawned processes start
 quickly."""
 
 import os
+import time
 import traceback
 
 import numpy as np
@@ -79,11 +82,15 @@ def _checks(hvd, rank, size):
     return out
 
 
+def _responses():
+    from horovod_tpu_torch import basics
+    return basics.runtime().backend.responses
+
+
 def _train_checks(hvd, rank, size):
     """One data-parallel step on each rank's half of a batch equals one
-    single-process step on the whole batch; the bucketed reduction is
-    bit-identical to the per-tensor one."""
-    from horovod_tpu_torch.ops import bucketing
+    single-process step on the whole batch; the reduction the native core
+    fuses is bit-identical to reducing each tensor on its own."""
     out = {}
     rng = np.random.RandomState(0)
     x = torch.as_tensor(rng.randint(0, SMALL["vocab_size"], size=(4, 8)),
@@ -109,19 +116,23 @@ def _train_checks(hvd, rank, size):
         torch.allclose(a, b, atol=1e-6, rtol=1e-5)
         for a, b in zip(model.parameters(), ref.parameters()))
 
-    # Reduced per tensor and in buckets of at most 2 KiB (several per
-    # model), from the same gradients: the results must be bit-identical.
+    # Reduced one tensor at a time (each its own response) and as one
+    # group that the core fuses into fewer responses than tensors (2 KiB
+    # fusion threshold: several per model), from the same gradients: the
+    # results must be bit-identical.
     m = _model(seed=0)
     _loss_fn(m, (x[shard], y[shard])).backward()
     per_tensor = [p.grad.clone() for p in m.parameters()]
-    bucketed = [p.grad.clone() for p in m.parameters()]
+    fused = [p.grad.clone() for p in m.parameters()]
     scales = dict(prescale_factor=0.5, postscale_factor=2.0)
-    hvd.grouped_allreduce_(per_tensor, op=hvd.Average, **scales)
-    bucketing.bucketed_allreduce_(bucketed, hvd.Average, bucket_bytes=2048,
-                                  prescale=0.5, postscale=2.0)
+    for i, g in enumerate(per_tensor):
+        hvd.allreduce_(g, op=hvd.Average, name=f"alone.{i}", **scales)
+    before = _responses()
+    hvd.grouped_allreduce_(fused, op=hvd.Average, name="fused", **scales)
+    responses = _responses() - before
     out["bucketed_bit_identical"] = (
-        len(bucketing.plan_buckets(bucketed, 2048)) > 1
-        and all(torch.equal(a, b) for a, b in zip(per_tensor, bucketed)))
+        1 < responses < len(fused)
+        and all(torch.equal(a, b) for a, b in zip(per_tensor, fused)))
     return out
 
 
@@ -282,12 +293,27 @@ def _sgd_full_batch(x, y):
     return ref
 
 
+class _SlowBackward(torch.autograd.Function):
+    """Identity whose backward sleeps: the layers above it have their
+    gradients (and hooks) well before backward returns."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        time.sleep(0.5)
+        return g
+
+
 def _hook_optimizer_checks(ht, rank, size):
     """The grad-hook DistributedOptimizer: a 2-rank step equals the
     single-process full-batch step (also with backward_passes_per_step=2
-    and gradient_predivide_factor); buckets launch inside backward; the
-    hook-launched bucketed reduction is bit-identical to reducing each
-    gradient on its own."""
+    and gradient_predivide_factor); a grad.* response is dispatched before
+    backward returns; the fused reduction of the hooks is bit-identical to
+    reducing each gradient on its own."""
+    from horovod_tpu_torch import basics
     out = {}
     rng = np.random.RandomState(0)
     x = torch.as_tensor(rng.randint(0, SMALL["vocab_size"], size=(4, 8)),
@@ -307,9 +333,25 @@ def _hook_optimizer_checks(ht, rank, size):
         return model, opt
 
     model, opt = wrapped()
-    _loss_fn(model, (x[shard], y[shard])).backward()
-    out["bucket_launched_in_backward"] = (
-        len(opt._hvd_buckets.buckets) > 1 and opt._hvd_buckets.launched > 0)
+    backend = basics.runtime().backend
+    executed = []
+    execute = backend._execute
+
+    def record(d):
+        executed.append([backend._handles[h][2] for h in d["handles"]
+                         if h in backend._handles])
+        return execute(d)
+    backend._execute = record
+    slow = model.backbone.blocks[0].register_forward_pre_hook(
+        lambda mod, args: (_SlowBackward.apply(args[0]),))
+    try:
+        _loss_fn(model, (x[shard], y[shard])).backward()
+        during = [n for names in executed for n in names]
+    finally:
+        backend._execute = execute
+        slow.remove()
+    out["bucket_launched_in_backward"] = any(
+        n.startswith("grad.") for n in during)
     opt.step()
     out["hook_step_equals_full_batch"] = all(
         torch.allclose(a, b, **close)
@@ -331,13 +373,15 @@ def _hook_optimizer_checks(ht, rank, size):
         torch.allclose(a, b, **close)
         for a, b in zip(model.parameters(), ref.parameters()))
 
-    # The same local gradients reduced per tensor, and through the hooks
-    # in buckets (prescale 1/4, postscale 4): bit for bit the same.
+    # The same local gradients reduced one tensor at a time, and through
+    # the hooks, fused by the core (prescale 1/4, postscale 4): bit for bit
+    # the same.
     local = _model(seed=0)
     _loss_fn(local, (x[shard], y[shard])).backward()
-    per_tensor = ht.grouped_allreduce_(
-        [p.grad.clone() for p in local.parameters()], op=ht.Average,
-        prescale_factor=0.25, postscale_factor=4.0)
+    per_tensor = [ht.allreduce_(p.grad.clone(), op=ht.Average,
+                                name=f"alone.{i}", prescale_factor=0.25,
+                                postscale_factor=4.0)
+                  for i, p in enumerate(local.parameters())]
     model, opt = wrapped(gradient_predivide_factor=4.0)
     _loss_fn(model, (x[shard], y[shard])).backward()
     opt.synchronize()
@@ -424,17 +468,28 @@ def _process_set_checks(hvd, rank, size):
     return out
 
 
-def run(rank, size, port, queue, device="cpu"):
+def launch_env(rank, size, rdv_dir, port):
+    """Rendezvous (``HVDTPU_PEERS``) and the launcher environment of one
+    rank of a CPU job on the delegated plane over gloo."""
+    from horovod_tpu_torch import native
+    import torch_port_launch
+    peers = torch_port_launch.peers(rdv_dir, rank, size,
+                                    native.reserve_listen_port)
+    os.environ.update(torch_port_launch.launcher_env(rank, size, peers,
+                                                     port))
+    os.environ["HVDTPU_CPU_OPERATIONS"] = "nccl"
+
+
+def run(rank, size, rdv_dir, port, queue, device="cpu"):
     """Spawned entry point: report ``(rank, checks or traceback)``. A job
     of 3 ranks runs the process-set checks; one of 2 runs the rest.
     ``device`` "cpu" runs over gloo; "cuda" puts rank r on ``cuda:r`` and
-    runs over NCCL."""
+    runs over NCCL. The native core negotiates either way."""
     global DEV
-    os.environ.update({"HVDTPU_RANK": str(rank), "HVDTPU_SIZE": str(size),
-                       "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
-                       # several buckets for the small model's gradients
-                       "HVDTPU_BUCKET_BYTES": "2048"})
     try:
+        launch_env(rank, size, rdv_dir, port)
+        # several fused responses for the small model's gradients
+        os.environ["HVDTPU_FUSION_THRESHOLD"] = "2048"
         import horovod_tpu_torch as hvd
         import horovod_tpu_torch.torch as ht
         DEV = hvd.init(device="cpu" if device == "cpu" else None).device
@@ -465,14 +520,13 @@ def example_source(path):
                        "import horovod_tpu_torch.torch as hvd")
 
 
-def run_example(rank, size, port, queue, path):
+def run_example(rank, size, rdv_dir, port, queue, path):
     """Spawned entry point: run ``path``'s ``main()`` against the port on the
     CPU; report ``(rank, (printed lines, parameter checksums))``."""
     import contextlib
     import io
-    os.environ.update({"HVDTPU_RANK": str(rank), "HVDTPU_SIZE": str(size),
-                       "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)})
     try:
+        launch_env(rank, size, rdv_dir, port)
         import horovod_tpu_torch as hvd
         hvd.init(device="cpu")   # the script's own init() finds it running
         scope = {"__name__": "example"}
