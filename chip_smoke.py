@@ -36,6 +36,19 @@ paths at full width:
   plane's, 0 host waits, the [api] checks again, an alltoall's time, and
   that the timeline holds negotiated ``grad.*`` allreduces. A second child
   times the same steps without any timeline: the control plane's cost.
+- ``[elastic]``: the TransformerLM as an elastic job started by the port's
+  own launcher (``python -m horovod_tpu_torch.runner.launch -np 1
+  --min-np 1 --max-np 1 --host-discovery-script ...``) with this script's
+  ``--elastic-child`` as the worker: ``hvd.init()`` through the launcher's
+  rendezvous on the card, the grad-hook ``DistributedOptimizer``,
+  ``hvd.elastic.TorchState`` committed after each of 6 steps under
+  ``@hvd.elastic.run``. A ``HorovodInternalError`` injected once in step 4
+  makes it restore step 3's commit and reset in process (a new NCCL group
+  at the next elastic version); an ``os._exit(17)`` after step 5 makes the
+  driver respawn the slot. Losses are held to [train]'s (1e-5 relative),
+  the re-run step and the respawned process to the first attempt (1e-6);
+  no step, commit or reset may make the host wait for the device; it
+  prints the commit, restore, reset, sync and respawn times.
 
 For each path it times 10 more steps on the host (enqueue time, step time,
 calls that made the host wait for the device) and profiles one by kernel
@@ -48,6 +61,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1298,7 +1312,7 @@ def native_phase(train_losses, train_ms, resnet_losses, resnet_ms):
     if len(res["resnet_losses"]) != len(resnet_losses) or \
             diff > NATIVE_RESNET_ATOL:
         fail("[native] ResNet-50 losses differ from [resnet]'s")
-    return res["launches"]
+    return res["launches"], bare["transformer_host_ms"]
 
 
 def native_bare_child(out_path, hvd, hvd_torch, models, train):
@@ -1444,6 +1458,334 @@ def native_child(out_path, bare=False):
                    "launches": launches, "alltoall_ms": a2a_ms}, f)
 
 
+# [elastic]: the TransformerLM as an elastic job through the port's own
+# launcher (runner/launch.py, the elastic driver) and hvd.elastic. One
+# injected collective failure resets the NCCL plane in process; one worker
+# exit makes the driver respawn the slot. Losses are held to [train]'s
+# (the same batch every step, as [train] trains) and to each other.
+ELASTIC_STEPS = 6
+ELASTIC_RAISE_STEP = 4   # HorovodInternalError after optimizer.step()
+ELASTIC_EXIT_STEP = 5    # os._exit(17) after this step's commit
+ELASTIC_RERUN_RTOL = 1e-6
+
+
+def run_launcher(cmd, cwd, env, timeout):
+    """Run the port's launcher; returns (exit code, output). At the time
+    limit it gets SIGINT, so that it stops its workers (they run in
+    sessions of their own), then SIGKILL; that fails the run."""
+    import signal
+    proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+        return proc.returncode, out
+    except subprocess.TimeoutExpired:
+        proc.send_signal(signal.SIGINT)
+        try:
+            out, _ = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        log(out[-8000:])
+        fail(f"[elastic] the launcher did not finish in {timeout} s")
+
+
+def elastic_phase(train_losses, train_ms, native_ms):
+    """Start the elastic job and check what its two worker processes
+    report (``elastic_child``) and what the driver logged. ``native_ms``
+    is [native]'s bare TransformerLM step: the same control plane with one
+    grouped reduction instead of the binding's grad hooks."""
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="hvd-elastic-") as tmp:
+        script = os.path.join(tmp, "discover.sh")
+        with open(script, "w") as f:
+            f.write("#!/bin/sh\necho localhost:1\n")
+        os.chmod(script, 0o755)
+        out = os.path.join(tmp, "elastic")
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("HVDTPU_", "HOROVOD_", "MASTER_"))}
+        env.update(PYTHONPATH=here, HVDTPU_LOG_LEVEL="info")
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+               "-np", "1", "--min-np", "1", "--max-np", "1",
+               "--host-discovery-script", script, sys.executable,
+               os.path.abspath(__file__), "--elastic-child", out]
+        log("[elastic] " + " ".join(cmd[1:5] + ["..."] + cmd[9:11]))
+        t0 = time.perf_counter()
+        rc, text = run_launcher(cmd, here, env, 900)
+        wall = time.perf_counter() - t0
+        for line in text.splitlines():
+            if "elastic" in line.lower() or "FAILED" in line:
+                log("  | " + line[-400:])
+        if os.path.exists(out + ".failed"):
+            fail("[elastic] a worker failed: "
+                 + open(out + ".failed").read())
+        if rc != 0:
+            fail(f"[elastic] the launcher exited {rc}")
+        runs = {}
+        for tag in ("first", "respawned"):
+            path = f"{out}.{tag}.json"
+            if not os.path.exists(path):
+                fail(f"[elastic] the {tag} worker process reported nothing")
+            with open(path) as f:
+                runs[tag] = json.load(f)
+    first, second = runs["first"], runs["respawned"]
+    versions = sorted({int(v) for v in re.findall(
+        r"published version (\d+)", text)})
+    log(f"[elastic] launcher exit 0 in {wall:.1f} s; the driver published "
+        f"versions {versions}; first process joined "
+        f"{first['versions']}, respawned process {second['versions']}")
+    if versions != [0, 1, 2] or first["versions"] != [0, 1] \
+            or second["versions"] != [2]:
+        fail("[elastic] expected elastic versions 0 and 1 (in-process "
+             "reset) then 2 (respawn)")
+    if "failed (exit 17)" not in text:
+        fail("[elastic] the driver did not see the worker's exit 17")
+    got = [first["losses"][str(i)] for i in range(1, ELASTIC_EXIT_STEP + 1)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, train_losses))
+    log(f"[elastic] losses of steps 1..{ELASTIC_EXIT_STEP} {got} against "
+        f"[train]'s: max relative difference {rel:.2e} (limit "
+        f"{NATIVE_TRANSFORMER_RTOL:.0e})")
+    if len(train_losses) != ELASTIC_EXIT_STEP or \
+            rel > NATIVE_TRANSFORMER_RTOL:
+        fail("[elastic] losses differ from [train]'s")
+    a, b = first["rerun"]
+    rerun_rel = abs(a - b) / abs(a)
+    log(f"[elastic] step {ELASTIC_RAISE_STEP}: first attempt {a!r}, re-run "
+        f"after restore and reset {b!r}: relative difference "
+        f"{rerun_rel:.2e} (limit {ELASTIC_RERUN_RTOL:.0e}), bit-equal "
+        f"{a == b}")
+    if rerun_rel > ELASTIC_RERUN_RTOL:
+        fail("[elastic] the re-run step differs from its first attempt")
+    re_got = [second["losses"][str(i)]
+              for i in range(1, ELASTIC_EXIT_STEP + 1)]
+    resp_rel = max(abs(x - y) / abs(y) for x, y in zip(re_got, got))
+    log(f"[elastic] respawned process: steps 1..{ELASTIC_STEPS} losses "
+        f"{[second['losses'][str(i)] for i in range(1, ELASTIC_STEPS + 1)]};"
+        f" steps 1..{ELASTIC_EXIT_STEP} against the first process's: max "
+        f"relative difference {resp_rel:.2e}, bit-equal {re_got == got}")
+    if resp_rel > ELASTIC_RERUN_RTOL:
+        fail("[elastic] the respawned process's losses differ")
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()[:1]
+    except OSError:
+        smi = []
+    r = first["reset_ms"]
+    log(f"[elastic] on {smi[0] if smi else 'an unnamed card'}: commit ms "
+        f"(host, median of "
+        f"{len(first['commit_ms'])}) {_median(first['commit_ms']):.1f}, "
+        f"device {_median(first['commit_device_ms']):.2f}; restore ms "
+        f"{first['restore_ms']:.1f}; reset ms {r['total']:.1f} (shutdown "
+        f"{r['shutdown']:.1f}: cycle thread {r['cycle']:.1f}, native core "
+        f"and process group {r['group_down']:.1f}; init {r['init']:.1f}: "
+        f"bootstrap {r['bootstrap']:.1f}, native core and group "
+        f"{r['group']:.1f}); sync ms at start "
+        f"{first['sync_ms'][0]:.1f}, "
+        f"after the reset {first['sync_ms'][1]:.1f}; respawn (exit to the "
+        f"new worker's first step) {second['first_step_t'] - first['exit_t']:.1f}"
+        f" s; step ms (median of steps 2..{ELASTIC_EXIT_STEP}) "
+        f"{_median(first['step_ms'][1:]):.1f} against [train]'s "
+        f"{train_ms:.1f} and [native]'s {native_ms:.1f} (one grouped "
+        f"reduction, not the grad hooks); first process init "
+        f"{first['init_s']:.1f} s")
+    for tag, run in runs.items():
+        bad = {k: v for k, v in run["launches"].items()
+               if v != dict.fromkeys(("fwd", "bwd_dkv", "bwd_dq"), 24)}
+        if bad or not run["launches"]:
+            fail(f"[elastic] {tag}: expected 24 launches of each no-dropout "
+                 f"kernel per step, got {bad}")
+        waits = {k: v for k, v in run["host_waits"].items() if v}
+        log(f"[elastic] {tag}: calls that made the host wait for the "
+            f"device inside steps, commits and the reset: {waits or 0}")
+        if waits:
+            fail(f"[elastic] {tag}: {waits} made the host wait for the "
+                 "device")
+    return {n: sum(run["launches"][s][n] for run in runs.values()
+                   for s in run["launches"])
+            for n in ("fwd", "bwd_dkv", "bwd_dq")}
+
+
+def elastic_child(out):
+    """One worker process of ``elastic_phase`` (``chip_smoke.py
+    --elastic-child OUT``): ``hvd.init()`` through the launcher's
+    rendezvous on the card, the TransformerLM under ``TorchState`` and
+    ``@hvd.elastic.run``. The first process raises HorovodInternalError
+    once during step 4 and exits with 17 after step 5's commit; the
+    respawned one trains all 6 steps. Each writes OUT.<first|respawned>.json.
+    """
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    t_start = time.perf_counter()
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch import basics, models, train
+    from horovod_tpu_torch.exceptions import HorovodInternalError
+    from horovod_tpu_torch.ops import flash_attention as fa
+    first = not os.path.exists(out + ".exited")
+    tag = "first" if first else "respawned"
+
+    def child_fail(msg):
+        with open(out + ".failed", "w") as f:
+            f.write(f"{tag}: {msg}")
+        fail(msg)
+
+    versions = []      # the elastic version joined at each init
+    resets = []        # basics.LAST_TIMES after each reset
+    caught = []        # (window, warnings) while sync debug mode warns
+
+    @contextlib.contextmanager
+    def no_host_wait(window):
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        caught.append((window, [f"{w.filename}:{w.lineno}" for w in got
+                                if "called a synchronizing"
+                                in str(w.message)]))
+
+    hvd.init()
+    rt = basics.runtime()
+    if rt.device.type != "cuda" or rt.backend.name != "nccl-global":
+        child_fail(f"hvd.init() landed on {rt.device} with backend "
+                   f"{rt.backend.name}, not cuda with nccl-global")
+    versions.append(int(os.environ["HVDTPU_ELASTIC_VERSION"]))
+    init_s = time.perf_counter() - t_start
+    log(f"[elastic] {tag} process: rank {hvd.rank()} of {hvd.size()} on "
+        f"{rt.device}, backend {rt.backend.name}, version {versions}, "
+        f"init {init_s:.1f} s")
+
+    cfg = models.TransformerConfig(
+        vocab_size=30522, hidden=1024, layers=24, heads=16, max_len=512,
+        causal=True, use_rope=True, attention_impl="flash")
+    # The weights and the batch are drawn as transformer_setup draws them.
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = models.TransformerLM(cfg, device=rt.device, generator=gen)
+    x = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_len),
+                      device="cuda", generator=gen)
+    y = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_len),
+                      device="cuda", generator=gen)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters())
+
+    def loss_fn(m, batch):
+        logits = m(batch[0])
+        return torch.nn.functional.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), batch[1].reshape(-1))
+
+    step_fn = train.make_train_step(loss_fn, opt)
+    # Set-up: the RoPE tables are copied to the card once per process (a
+    # host wait), at the first forward unless built here.
+    from horovod_tpu_torch.models import transformer as tmod
+    tmod._rope_tables(cfg.max_len, cfg.hidden // cfg.heads, rt.device)
+    rec = {"versions": versions, "losses": {}, "attempts": [],
+           "step_ms": [], "commit_ms": [], "commit_device_ms": [],
+           "sync_ms": [], "launches": {}, "init_s": init_s}
+
+    class TimedState(hvd.elastic.TorchState):
+        """Times restore and sync; the reset runs under sync debug mode,
+        from the end of the restore to the first sync after it."""
+        _window = None
+
+        def restore(self):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().restore()
+            torch.cuda.synchronize()
+            rec["restore_ms"] = (time.perf_counter() - t0) * 1e3
+            self._window = no_host_wait("reset")
+            self._window.__enter__()
+
+        def sync(self):
+            if self._window is not None:
+                self._window.__exit__(None, None, None)
+                self._window = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().sync()
+            torch.cuda.synchronize()
+            rec["sync_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    def after_reset():
+        versions.append(int(os.environ["HVDTPU_ELASTIC_VERSION"]))
+        resets.append({k: dict(v) for k, v in basics.LAST_TIMES.items()})
+
+    state = TimedState(model, opt, step=0)
+    state.register_reset_callbacks([after_reset])
+
+    def write(path_tag):
+        rec["host_waits"] = {}
+        for window, sites in caught:
+            rec["host_waits"].setdefault(window, []).extend(sites)
+        if resets:
+            down, up = resets[0]["shutdown"], resets[0]["init"]
+            rec["reset_ms"] = {
+                "total": down["total"] + up["total"],
+                "shutdown": down["total"], "cycle": down["coordinator"],
+                "group_down": down["backend"], "init": up["total"],
+                "bootstrap": up["bootstrap"], "group": up["backend"]}
+        with open(f"{out}.{path_tag}.json", "w") as f:
+            json.dump(rec, f)
+
+    @hvd.elastic.run
+    def train_loop(state):
+        while state.step < ELASTIC_STEPS:
+            s = state.step + 1
+            before = dict(fa.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with no_host_wait(f"step {s}"):
+                loss_t = step_fn(model, (x, y))
+            loss = loss_t.item()
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            if not first and s == 1:
+                rec["first_step_t"] = time.time()
+            rec["launches"][f"{s}.{len(rec['attempts'])}"] = {
+                n: fa.LAUNCHES[n] - before[n]
+                for n in ("fwd", "bwd_dkv", "bwd_dq")}
+            rec["attempts"].append([s, loss])
+            log(f"  [elastic] {tag} step {s}: loss {loss:.6f} "
+                f"{rec['step_ms'][-1]:.1f} ms")
+            if first and s == ELASTIC_RAISE_STEP and \
+                    not os.path.exists(out + ".raised"):
+                open(out + ".raised", "w").close()
+                raise HorovodInternalError(
+                    f"injected failure during step {s}, after "
+                    "optimizer.step() and before the commit")
+            rec["losses"][str(s)] = loss
+            state.step = s
+            done = torch.cuda.Event(enable_timing=True)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            with no_host_wait(f"commit {s}"):
+                state.commit()
+            rec["commit_ms"].append((time.perf_counter() - t0) * 1e3)
+            done.record()
+            done.synchronize()
+            rec["commit_device_ms"].append(start.elapsed_time(done))
+            if first and s == ELASTIC_EXIT_STEP:
+                attempts = [a[1] for a in rec["attempts"]
+                            if a[0] == ELASTIC_RAISE_STEP]
+                rec["rerun"] = attempts[:2]
+                rec["exit_t"] = time.time()
+                write("first")
+                open(out + ".exited", "w").close()
+                sys.stdout.flush()
+                os._exit(17)
+        return state.step
+
+    train_loop(state)
+    if first:
+        child_fail("the first process finished without its exit")
+    write("respawned")
+    hvd.shutdown()
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -1498,11 +1840,14 @@ def main():
     resnet_losses, resnet_ms, resnet_host = resnet_phase(hvd_torch, models,
                                                          train)
     torch.cuda.empty_cache()
-    native_launches = native_phase(
+    native_launches, native_ms = native_phase(
         train_losses, (train_ms, train_host), resnet_losses,
         (resnet_ms, resnet_host))
     log("[launches] [native] " + ", ".join(
         f"{n}={c}" for n, c in native_launches.items()))
+    elastic_launches = elastic_phase(train_losses, train_ms, native_ms)
+    log("[launches] [elastic] " + ", ".join(
+        f"{n}={c}" for n, c in elastic_launches.items()))
     log("[launches] " + ", ".join(f"{n}={c}" for n, c in launches.items()))
     if set(launches) != set(KERNELS) or not all(launches.values()):
         fail(f"a kernel was not launched on its path: {launches}")
@@ -1530,5 +1875,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--native-child"]:
         native_child(sys.argv[2], bare=sys.argv[3:4] == ["bare"])
+    elif sys.argv[1:2] == ["--elastic-child"]:
+        elastic_child(sys.argv[2])
     else:
         main()

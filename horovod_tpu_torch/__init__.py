@@ -13,8 +13,10 @@ nor anything of ``horovod_tpu``.
 
 from .basics import (cross_rank, cross_size, device, init, is_initialized,
                      local_rank, local_size, rank, shutdown, size)
+from . import elastic  # noqa: F401  (hvd.elastic.run / State / ObjectState)
 from .exceptions import (DuplicateNameError, HorovodInternalError,
-                         NotInitializedError, StalledTensorError)
+                         HostsUpdatedInterrupt, NotInitializedError,
+                         StalledTensorError)
 from .functions import (allgather_object, broadcast_object,
                         broadcast_optimizer_state, broadcast_parameters,
                         broadcast_variables)

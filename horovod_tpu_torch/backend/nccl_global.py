@@ -28,12 +28,14 @@ stream, after the submitting streams' events.
 
 import contextlib
 import functools
+import os
 
 import torch
 
 from .. import native
 from ..coordinator import wait_ready
 from ..exceptions import HorovodInternalError
+from ..utils import envparse
 from ..utils.logging_util import get_logger
 from . import scale_
 from .tcp_backend import TcpBackend, _Pending, _splits, _sub_names
@@ -76,10 +78,54 @@ class _Staged:
         self.event = event
 
 
+#: KV scope of the process group's store address (one key per elastic
+#: version), brokered through the launcher's rendezvous store.
+STORE_SCOPE = "torchdist"
+
+
+def _process_group_store(topology):
+    """The store the process group forms on, or None for ``env://``
+    (``MASTER_ADDR`` and ``MASTER_PORT`` set, which win). Otherwise the
+    address is brokered through the launcher's KV store once per elastic
+    version: rank 0 binds a fresh ``TCPStore`` on an ephemeral port and
+    publishes ``ip:port``, the others read it (the counterpart of the JAX
+    package's ``init_jax_distributed``, backend/xla_global.py:74-100). A
+    version that re-forms the group after a reset gets a fresh store."""
+    import torch.distributed as dist
+
+    from ..runner import http_client
+    from ..runner import rendezvous as rdv
+    if os.environ.get("MASTER_ADDR") and os.environ.get("MASTER_PORT"):
+        return None
+    cfg = rdv.rendezvous_config()
+    if cfg is None:
+        raise HorovodInternalError(
+            "the delegated plane needs MASTER_ADDR/MASTER_PORT or the "
+            "launcher's rendezvous to broker the process group's store")
+    addr, port, token = cfg
+    ver = envparse.get_env(envparse.ELASTIC_VERSION)
+    key = f"store.{ver}" if ver is not None else "store"
+    timeout_s = envparse.get_float(envparse.START_TIMEOUT, 120.0)
+    if topology.rank == 0:
+        ip = rdv._local_ip_towards(addr, port)
+        store = dist.TCPStore(ip, 0, topology.size, is_master=True,
+                              wait_for_workers=False)
+        http_client.put_kv(addr, port, STORE_SCOPE, key,
+                           f"{ip}:{store.port}", token=token)
+        return store
+    where = http_client.wait_for_kv(addr, port, STORE_SCOPE, key,
+                                    token=token,
+                                    deadline_s=timeout_s).decode()
+    host, _, store_port = where.rpartition(":")
+    return dist.TCPStore(host, int(store_port), topology.size,
+                         is_master=False)
+
+
 class NcclGlobalBackend(TcpBackend):
     """Delegated execution: native negotiation, ``torch.distributed``
-    data plane. The process group's rendezvous reads ``MASTER_ADDR`` and
-    ``MASTER_PORT`` (``env://``)."""
+    data plane. The process group forms on ``env://`` when
+    ``MASTER_ADDR`` and ``MASTER_PORT`` are set, else on a store brokered
+    through the launcher's KV store (``_process_group_store``)."""
 
     delegate_data_ops = True
 
@@ -92,9 +138,25 @@ class NcclGlobalBackend(TcpBackend):
         if device.type == "cuda" and not dist.is_nccl_available():
             raise HorovodInternalError(
                 "CUDA tensors need NCCL, which this build of torch lacks")
-        dist.init_process_group(self.dist_backend, init_method="env://",
-                                rank=topology.rank,
-                                world_size=topology.size)
+        if envparse.get_bool(envparse.ELASTIC):
+            # An elastic worker aborts and re-forms its communicators
+            # itself (``_abort_communicators``, ``close``): NCCL's
+            # watchdog must not tear the process down on the error a dead
+            # peer leaves behind (the abort API's documented setting).
+            os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
+        store = _process_group_store(topology)
+        kw = ({"init_method": "env://"} if store is None
+              else {"store": store})
+        if device.type == "cuda":
+            # Eager communicator: the group forms here, inside init() and
+            # an elastic reset's retries, not at the first collective.
+            kw["device_id"] = device
+        dist.init_process_group(self.dist_backend, rank=topology.rank,
+                                world_size=topology.size, **kw)
+        # Set by the cycle thread once the native core reports a dead
+        # peer: the NCCL communicators were aborted, so close() must not
+        # wait for them.
+        self._aborted = False
         super().__init__(topology)
         self._red = {native.RED_SUM: dist.ReduceOp.SUM,
                      native.RED_MIN: dist.ReduceOp.MIN,
@@ -222,7 +284,30 @@ class NcclGlobalBackend(TcpBackend):
         if self._staged:
             self._staged = [p for p in self._staged
                             if not self._enqueue_staged(p)]
-        return super().run_cycle()
+        done = super().run_cycle()
+        if self._transport_dead and not self._aborted \
+                and self.dist_backend == "nccl":
+            self._abort_communicators()
+        return done
+
+    def _abort_communicators(self):
+        """The native core reported a dead peer (its transport failed
+        before NCCL was called for the next response): abort every
+        communicator of this rank's groups, so that a collective already
+        in flight towards the dead peer returns instead of hanging the
+        device and every host call that waits for it."""
+        self._aborted = True
+        if not self._dist.is_initialized():
+            return
+        get_logger().warning("native core lost a peer: aborting this "
+                             "rank's NCCL communicators")
+        groups = [g for g, _ in self._groups.values() if g is not None]
+        for g in groups + [self._dist.group.WORLD]:
+            try:
+                g.abort()
+            except Exception as exc:  # noqa: BLE001 - best effort
+                get_logger().warning("aborting an NCCL communicator "
+                                     "failed: %s", exc)
 
     def _sweep_one(self, p):
         if isinstance(p.unpack, _Staged):
@@ -422,10 +507,23 @@ class NcclGlobalBackend(TcpBackend):
         return t.numel() * t.element_size()
 
     def close(self):
+        """Stop the native core, then tear the process group down so that
+        this process can form a new one (an elastic reset: ``shutdown()``
+        then ``init()``). Work already issued on the backend's stream is
+        ordered before the caller's stream; the host does not wait for
+        it. After a dead peer the communicators were aborted: the group is
+        dropped with the abort API instead of the destroy, which would
+        wait for the dead peer."""
         try:
             super().close()
         finally:
-            if self._stream is not None:
-                self._stream.synchronize()
             if self._dist.is_initialized():
-                self._dist.destroy_process_group()
+                from torch.distributed import distributed_c10d as c10d
+                abort = getattr(c10d, "_abort_process_group", None)
+                if self._aborted and abort is not None:
+                    abort()
+                else:
+                    if self._stream is not None:
+                        torch.cuda.current_stream(self.device).wait_stream(
+                            self._stream)
+                    self._dist.destroy_process_group()

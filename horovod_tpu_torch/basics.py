@@ -11,15 +11,20 @@ through the runtime's ``Coordinator``:
 - ``spmd`` mode (``RANK`` and ``SIZE`` set, at any size, 1 included): the
   native core negotiates across the ranks listed in ``HVDTPU_PEERS``, and
   NCCL (CUDA tensors) or the native TCP ring or gloo (CPU tensors)
-  executes (``backend.make_spmd_backend``).
+  executes (``backend.make_spmd_backend``). Under the port's launcher
+  (``runner/launch.py``) the ranks gather ``HVDTPU_PEERS`` through its
+  rendezvous store; an elastic worker (``HVDTPU_ELASTIC``) first fetches
+  its rank from the store's newest membership version.
 
-Entry points run on the card: ``init()`` picks ``cuda:<local_rank>`` and
-raises when there is no CUDA device, unless the caller asks for the CPU
-with ``init(device="cpu")``.
+Entry points run on the card: ``init()`` picks ``cuda:<local_rank>`` (an
+elastic worker: the card of its slot) and raises when there is no CUDA
+device, unless the caller asks for the CPU with ``init(device="cpu")``.
 """
 
 import atexit
+import contextlib
 import threading
+import time
 
 import torch
 
@@ -78,6 +83,18 @@ _runtime = None
 _init_lock = threading.Lock()
 
 
+def _card_index(topology):
+    """The CUDA device index of this process. An elastic worker takes the
+    slot index of its worker id (``host:<slot>``), not its local rank: the
+    driver hands local ranks out again at every membership version,
+    survivors first, so after a lost slot a survivor's local rank can name
+    the card a respawned slot holds, or the other way round."""
+    wid = envparse.get_str(envparse.WORKER_ID, "")
+    if envparse.get_bool(envparse.ELASTIC) and wid:
+        return int(wid.rpartition(":")[2])
+    return topology.local_rank
+
+
 def _pick_device(device, topology):
     if device is not None:
         return torch.device(device)
@@ -86,7 +103,24 @@ def _pick_device(device, topology):
             "horovod_tpu_torch.init(): no CUDA device is available. The "
             "port runs on the GPU; pass device='cpu' to run on the CPU "
             "explicitly.")
-    return torch.device("cuda", topology.local_rank)
+    return torch.device("cuda", _card_index(topology))
+
+
+# Milliseconds (host clock) of the parts of this process's last init() and
+# last shutdown(): what an elastic reset spends where. init: "bootstrap"
+# (the rendezvous), "backend" (the native core and the process group),
+# "total"; shutdown: "coordinator" (the cycle thread), "backend" (the
+# native core and the process group), "total".
+LAST_TIMES = {"init": {}, "shutdown": {}}
+
+
+@contextlib.contextmanager
+def _timed(part, key):
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        LAST_TIMES[part][key] = (time.perf_counter() - t0) * 1e3
 
 
 def init(comm=None, process_sets=None, device=None):
@@ -103,6 +137,21 @@ def init(comm=None, process_sets=None, device=None):
     with _init_lock:
         if _runtime is not None:
             return _runtime
+        t0 = time.perf_counter()
+        LAST_TIMES["init"] = {}
+        from .runner import rendezvous as rdv
+        rdv_cfg = rdv.rendezvous_config()
+        if envparse.get_bool(envparse.ELASTIC) and rdv_cfg is not None:
+            # Elastic workers are spawned WITHOUT rank env: ranks come from
+            # the driver's latest membership version via the rendezvous
+            # store, so a re-init after a reset lands in the new cohort
+            # (reference: horovod/runner/elastic/rendezvous.py:28-60).
+            with _timed("init", "bootstrap"):
+                rdv.elastic_bootstrap()
+            # Liveness lease: one beat thread for the whole process (a
+            # worker mid-reset is alive; re-inits leave it running).
+            from .runner import heartbeat
+            heartbeat.start_worker_heartbeat()
         topology = Topology.from_env()
         spmd = (envparse.get_env(envparse.SIZE) is not None
                 and envparse.get_env(envparse.RANK) is not None)
@@ -113,6 +162,12 @@ def init(comm=None, process_sets=None, device=None):
                 f"Invalid launcher topology: rank={topology.rank} "
                 f"size={topology.size} (a multi-process job sets both "
                 "RANK and SIZE)")
+        if spmd and rdv_cfg is not None \
+                and not envparse.get_str(envparse.PEERS, ""):
+            # A static launcher job: the ranks exchange their native-core
+            # listeners through the launcher's store (reference:
+            # gloo_context.cc:150-228 bootstrapping from the driver).
+            rdv.bootstrap_peers(topology)
         dev = _pick_device(device, topology)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
@@ -122,7 +177,9 @@ def init(comm=None, process_sets=None, device=None):
         reset_auto_name_counters()
         from .backend import LoopbackBackend, make_spmd_backend
         if spmd:
-            mode, backend = MODE_SPMD, make_spmd_backend(topology, dev)
+            with _timed("init", "backend"):
+                backend = make_spmd_backend(topology, dev)
+            mode = MODE_SPMD
         else:
             mode, backend = MODE_SINGLE, LoopbackBackend()
         from . import process_sets as ps_mod
@@ -148,6 +205,7 @@ def init(comm=None, process_sets=None, device=None):
                           "backend=%s", mode, topology.rank, topology.size,
                           dev, backend.name)
         _runtime = runtime
+        LAST_TIMES["init"]["total"] = (time.perf_counter() - t0) * 1e3
         return _runtime
 
 
@@ -157,16 +215,21 @@ def shutdown():
     with _init_lock:
         if _runtime is None:
             return
+        t0 = time.perf_counter()
+        LAST_TIMES["shutdown"] = {}
         # The coordinator stops before the backend closes: its cycle thread
         # is the only one that drives the backend.
-        _runtime.coordinator.stop()
+        with _timed("shutdown", "coordinator"):
+            _runtime.coordinator.stop()
         if _runtime.timeline is not None:
             _runtime.timeline.stop()
-        _runtime.backend.close()
+        with _timed("shutdown", "backend"):
+            _runtime.backend.close()
         from . import process_sets
         process_sets._teardown(_runtime)
         _runtime._shutdown = True
         _runtime = None
+        LAST_TIMES["shutdown"]["total"] = (time.perf_counter() - t0) * 1e3
 
 
 atexit.register(shutdown)

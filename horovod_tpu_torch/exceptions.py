@@ -1,14 +1,40 @@
 """Framework exceptions (port of ``horovod_tpu/exceptions.py``; the
-reference's taxonomy, horovod/common/exceptions.py)."""
+reference's taxonomy, horovod/common/exceptions.py). A recoverable
+collective failure raises ``HorovodInternalError`` and a membership change
+``HostsUpdatedInterrupt``; ``elastic.run`` catches both."""
+
+
+# Process exit code a worker uses to request a fresh respawn of its slot
+# (elastic exit-restart, elastic.py). Defined here so that the launcher and
+# the driver import it without the elastic module.
+RESTART_EXIT_CODE = 79
+
+# Exit code of a graceful preemption hand-off: the worker caught SIGTERM,
+# persisted its last commit at a commit boundary, and left. The elastic
+# driver counts it as a membership change, not a failure.
+PREEMPT_EXIT_CODE = 83
 
 
 class HorovodInternalError(RuntimeError):
     """Internal error raised when a collective routine fails.
 
-    Recoverable via elastic mode, once that is ported: the training loop
-    restores the last committed state and re-initializes (reference:
+    Recoverable via elastic mode: the training loop restores the last
+    committed state and re-initializes (reference:
     horovod/common/elastic.py:151).
     """
+
+
+class HostsUpdatedInterrupt(Exception):
+    """The set of participating hosts changed.
+
+    The elastic driver publishes a new membership version; the worker
+    raises this at the next commit boundary (reference:
+    horovod/common/exceptions.py, horovod/common/elastic.py:57).
+    """
+
+    def __init__(self, skip_sync=False):
+        super().__init__()
+        self.skip_sync = skip_sync
 
 
 class NotInitializedError(RuntimeError):

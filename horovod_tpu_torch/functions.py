@@ -80,22 +80,61 @@ def broadcast_parameters(params, root_rank=0, process_set=global_process_set):
 broadcast_variables = broadcast_parameters
 
 
-def _cpu_copy(obj):
-    if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu()
-    if isinstance(obj, dict):
-        return {k: _cpu_copy(v) for k, v in obj.items()}
-    if isinstance(obj, (list, tuple)):
-        return type(obj)(_cpu_copy(v) for v in obj)
-    return obj
+class _Slot:
+    """Where a device tensor of an optimizer state stood in the pickled
+    structure: it travels by a tensor broadcast instead."""
+
+    __slots__ = ("shape", "dtype")
+
+    def __init__(self, shape, dtype):
+        self.shape = shape
+        self.dtype = dtype
 
 
 def broadcast_optimizer_state(optimizer, root_rank=0,
                               process_set=global_process_set):
-    """Load ``root_rank``'s state into ``optimizer`` on every rank. The
-    state dict travels as one object; tensors are loaded back onto the
-    parameters' devices by ``load_state_dict``."""
-    state = broadcast_object(_cpu_copy(optimizer.state_dict()), root_rank,
-                             process_set=process_set)
-    optimizer.load_state_dict(state)
+    """Load ``root_rank``'s state into ``optimizer`` on every rank. As the
+    reference's does (horovod/torch/functions.py), every state tensor on
+    the runtime's device is broadcast in place, all in flight at once;
+    only the rest (the structure, the hyperparameters and host tensors
+    such as AdamW's step counts) travels as one pickled object. A rank
+    whose optimizer has no state yet gets it allocated from the root's
+    shapes."""
+    dev = basics.device()
+    root = basics.rank() == root_rank
+    tensors = []
+
+    def strip(obj):
+        if isinstance(obj, torch.Tensor):
+            if obj.device == dev:
+                tensors.append(obj)
+                return _Slot(tuple(obj.shape), obj.dtype)
+            return obj.detach().cpu()
+        if isinstance(obj, dict):
+            return {k: strip(v) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(strip(v) for v in obj)
+        return obj
+
+    def fill(obj):
+        if isinstance(obj, _Slot):
+            t = torch.empty(obj.shape, dtype=obj.dtype, device=dev)
+            tensors.append(t)
+            return t
+        if isinstance(obj, dict):
+            return {k: fill(v) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(fill(v) for v in obj)
+        return obj
+
+    skeleton = broadcast_object(strip(optimizer.state_dict()) if root
+                                else None, root_rank,
+                                process_set=process_set)
+    state = None if root else fill(skeleton)
+    handles = [broadcast_async_(t, root_rank, process_set=process_set)
+               for t in tensors]
+    for h in handles:
+        h.wait()
+    if not root:
+        optimizer.load_state_dict(state)
     return optimizer

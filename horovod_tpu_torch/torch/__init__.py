@@ -18,10 +18,13 @@ and ``step()`` synchronizes every handle before the inner update. Ranks may
 produce their gradients in different orders: the native core pairs them
 by name.
 
+``hvd.elastic`` (``torch/elastic.py``) holds ``TorchState``,
+``ElasticSampler`` and ``run``.
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
 item: sparse allreduce (item 10; ``sparse_as_dense=True`` densifies),
-compression other than ``Compression.none`` (item 9), Adasum (item 10),
-``metrics_snapshot`` (item 13) and ``elastic`` (item 11).
+compression other than ``Compression.none`` (item 9), Adasum (item 10)
+and ``metrics_snapshot`` (item 13).
 """
 
 import functools
@@ -439,5 +442,11 @@ def __getattr__(name):
         globals()[name] = SyncBatchNorm
         return SyncBatchNorm
     if name == "elastic":
-        raise _not_ported("horovod_tpu_torch.torch.elastic", 11)
+        # importlib, not `from . import`: the from-import form checks
+        # hasattr(package, "elastic") mid-import and re-enters this
+        # __getattr__ forever.
+        import importlib
+        mod = importlib.import_module(".elastic", __name__)
+        globals()[name] = mod
+        return mod
     raise AttributeError(name)

@@ -138,6 +138,34 @@ LEGACY_AUTO_NAMES = register(
     "Name unnamed collectives by a process-global counter instead of by "
     "call site")
 
+# -- elastic training and the launcher (runner/, elastic.py) -----------------
+ELASTIC = register(
+    "ELASTIC", "0",
+    "Elastic worker mode: ranks come from the driver's rendezvous "
+    "store, not launcher env (set by the launcher's --min-np/--max-np)")
+ELASTIC_CHECK_INTERVAL = register(
+    "ELASTIC_CHECK_INTERVAL", "0.2",
+    "Seconds between elastic host-update checks at commit boundaries")
+START_TIMEOUT = register(
+    "START_TIMEOUT", "120",
+    "Seconds workers wait at rendezvous for the full cohort "
+    "(launcher --start-timeout)")
+KV_RETRIES = register(
+    "KV_RETRIES", "8", "KV client: max retries per call")
+KV_BACKOFF = register(
+    "KV_BACKOFF", "0.05", "KV client: initial backoff seconds")
+KV_DEADLINE = register(
+    "KV_DEADLINE", "30", "KV client: overall per-call deadline seconds")
+HEARTBEAT_INTERVAL = register(
+    "HEARTBEAT_INTERVAL", "2",
+    "Worker: seconds between heartbeat lease renewals")
+HEARTBEAT_TIMEOUT = register(
+    "HEARTBEAT_TIMEOUT", "30",
+    "Driver: fail a worker whose lease stops changing for this long")
+SIGKILL_DEADLINE = register(
+    "SIGKILL_DEADLINE", "10",
+    "Driver: seconds between SIGTERM and SIGKILL on worker stop")
+
 # -- kernels ----------------------------------------------------------------
 BRIDGE_FLASH = register(
     "BRIDGE_FLASH", "auto",
@@ -161,4 +189,9 @@ LOCAL_RANK = "LOCAL_RANK"
 LOCAL_SIZE = "LOCAL_SIZE"
 CROSS_RANK = "CROSS_RANK"
 CROSS_SIZE = "CROSS_SIZE"
-PEERS = "PEERS"   # "host:port,..." of every rank's native-core listener
+PEERS = "PEERS"                          # "host:port,..." one per rank
+RENDEZVOUS_ADDR = "RENDEZVOUS_ADDR"      # the launcher's KV store
+RENDEZVOUS_PORT = "RENDEZVOUS_PORT"
+WORKER_ID = "WORKER_ID"                  # elastic slot identity
+ELASTIC_VERSION = "ELASTIC_VERSION"      # membership version joined
+JOB_TOKEN = "JOB_TOKEN"                  # KV-store auth token

@@ -307,3 +307,51 @@ def test_async_handles_make_the_host_wait_for_nothing(hvd_cuda):
             hvd.synchronize(h)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+def test_torch_state_commit_restore_sync_on_cuda(hvd_cuda):
+    """TorchState on CUDA tensors: a commit copies every tensor on the
+    card and makes the host wait for nothing; a restore brings the
+    committed values back; a sync at size 1 keeps them."""
+    hvd = hvd_cuda
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(torch.nn.Linear(16, 32), torch.nn.ReLU(),
+                                torch.nn.Linear(32, 4)).cuda()
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-2),
+        named_parameters=model.named_parameters())
+    x = torch.randn(8, 16, device="cuda")
+
+    def train_step():
+        opt.zero_grad()
+        model(x).square().mean().backward()
+        opt.step()
+
+    def snapshot():
+        sd = {f"m.{k}": v.clone() for k, v in model.state_dict().items()}
+        for i, st in opt.state_dict()["state"].items():
+            sd.update({f"o.{i}.{k}": v.clone() for k, v in st.items()})
+        return sd
+
+    train_step()
+    state = hvd.elastic.TorchState(model, opt, step=1)
+    train_step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state.step = 2
+        state.commit()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    committed = snapshot()
+    assert all(v.device.type == "cuda" for k, v in committed.items()
+               if not k.endswith(".step"))
+    train_step()
+    state.step = 3
+    state.restore()
+    assert state.step == 2
+    restored = snapshot()
+    assert all(torch.equal(restored[k], committed[k]) for k in committed)
+    state.sync()
+    synced = snapshot()
+    assert all(torch.equal(synced[k], committed[k]) for k in committed)

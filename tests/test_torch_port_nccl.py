@@ -4,7 +4,13 @@ tests/torch_port_worker.py): the same checks, plus one that launches,
 polls and synchronizes async allreduces with the host allowed to wait for
 nothing; needs 3 GPUs. And the rank-order and hook-order job of
 tests/test_torch_port_spmd.py over NCCL (tests/torch_port_spmd_worker.py
-with ``PORT_TEST_DEVICE=cuda``); needs 2 GPUs. Each skips elsewhere:
+with ``PORT_TEST_DEVICE=cuda``), and elastic jobs over NCCL through the
+port's launcher whose slot 1 or slot 0 is killed
+(tests/torch_port_elastic_worker.py, a tiny TransformerLM under
+``TorchState``): the survivor aborts its communicators, resets in process
+on its own card (the respawned slot takes its slot's card) and finishes
+with the parameters of an uninterrupted run; each needs 2 GPUs. Each
+skips elsewhere:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_nccl.py
 """
@@ -60,3 +66,44 @@ def order_job(tmp_path_factory):
 def test_rank_and_hook_order_over_nccl(order_job, check):
     assert all(order_job[r][check] for r in range(2))
     assert order_job[0]["hook_order"] != order_job[1]["hook_order"]
+
+
+@pytest.fixture(scope="module")
+def elastic_jobs(tmp_path_factory):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices (a multi-GPU machine)")
+    import torch_port_launch
+    from test_torch_port_elastic import _Job
+    torch_port_launch.build_port_core()
+    root = tmp_path_factory.mktemp("nccl-elastic")
+    env = {"ELASTIC_TEST_EPOCHS": 5, "PORT_TEST_DEVICE": "cuda"}
+    started = {
+        wid: _Job(root, f"kill{wid[-1]}", "transformer", [["localhost:2"]],
+                  {**env, "ELASTIC_TEST_KILL_WORKER": wid,
+                   "ELASTIC_TEST_KILL_EPOCH": 3})
+        for wid in ("localhost:1", "localhost:0")}
+    started["ref"] = _Job(root, "ref", "transformer", [["localhost:2"]], env)
+    return {name: job.finish() for name, job in started.items()}
+
+
+@pytest.mark.parametrize("killed", ["localhost:1", "localhost:0"])
+def test_nccl_elastic_job_survives_a_killed_rank(elastic_jobs, killed):
+    import numpy as np
+    job, ref = elastic_jobs[killed], elastic_jobs["ref"]
+    for j in (job, ref):
+        assert j["rc"] == 0, (j["log"], j["launcher"][-4000:])
+        assert sum(" DONE " in line for line in j["log"].splitlines()) == 2
+    assert "KILLED step=3" in job["log"]
+    assert "aborting this rank's NCCL communicators" in job["launcher"]
+    # Each slot computes on its own card, whatever rank it ends with.
+    done = {line.split()[0]: line for line in job["log"].splitlines()
+            if " DONE " in line}
+    assert "rank=0" in done[{"localhost:1": "localhost:0",
+                             "localhost:0": "localhost:1"}[killed]], done
+    for slot in ("0", "1"):
+        assert f"device=cuda:{slot}" in done[f"localhost:{slot}"], done
+    got = np.load(job["path"] + ".params.npz")
+    want = np.load(ref["path"] + ".params.npz")
+    for k in want.files:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-6,
+                                   err_msg=k)

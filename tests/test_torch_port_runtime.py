@@ -172,12 +172,16 @@ def test_knobs_and_reduce_ops_match_the_jax_package():
         "FUSION_THRESHOLD", "CACHE_CAPACITY", "HIERARCHICAL_THRESHOLD",
         "CPU_OPERATIONS", "TIMELINE", "TIMELINE_MARK_CYCLES",
         "STALL_CHECK_DISABLE", "STALL_CHECK_TIME", "STALL_CHECK_TIME_SECONDS",
-        "STALL_SHUTDOWN_TIME_SECONDS", "METRICS", "LEGACY_AUTO_NAMES"}
+        "STALL_SHUTDOWN_TIME_SECONDS", "METRICS", "LEGACY_AUTO_NAMES",
+        "ELASTIC", "ELASTIC_CHECK_INTERVAL", "START_TIMEOUT", "KV_RETRIES",
+        "KV_BACKOFF", "KV_DEADLINE", "HEARTBEAT_INTERVAL",
+        "HEARTBEAT_TIMEOUT", "SIGKILL_DEADLINE"}
     for name, knob in tenv.KNOBS.items():
         assert getattr(tenv, name) == name
         assert knob["default"] == jenv.KNOBS[name]["default"]
     for name in ("RANK", "SIZE", "LOCAL_RANK", "LOCAL_SIZE", "CROSS_RANK",
-                 "CROSS_SIZE", "PEERS"):
+                 "CROSS_SIZE", "PEERS", "RENDEZVOUS_ADDR", "RENDEZVOUS_PORT",
+                 "WORKER_ID", "ELASTIC_VERSION", "JOB_TOKEN"):
         assert getattr(tenv, name) == getattr(jenv, name)
     for name in ("Average", "Sum", "Adasum", "Min", "Max", "Product"):
         op = getattr(tops, name)

@@ -83,6 +83,9 @@ def _read(out, size, codes):
 
 @pytest.fixture(scope="module")
 def jobs(tmp_path_factory):
+    # The JAX package's workers build its native library when it is
+    # missing (a fresh checkout): build it once here, before they start.
+    torch_port_launch.build_jax_native_library()
     root = tmp_path_factory.mktemp("spmd")
     stall_env = {"HVDTPU_STALL_CHECK_TIME_SECONDS": "1",
                  "HVDTPU_STALL_SHUTDOWN_TIME_SECONDS": "3"}
