@@ -49,6 +49,21 @@ paths at full width:
   the re-run step and the respawned process to the first attempt (1e-6);
   no step, commit or reset may make the host wait for the device; it
   prints the commit, restore, reset, sync and respawn times.
+- ``[compress]``: Horovod's gradient-reduction options in a one-rank
+  launcher job (``--compress-child``, re-initialized between parts): the
+  TransformerLM 5 steps under ``HVDTPU_COMPRESSION=int8``, then ``fp8``,
+  the NCCL plane's quantized pipeline reducing every fused response (step
+  1 held to [native]'s loss within 1e-5, later steps within the codec's
+  bound of the loss change; one step's responses held to
+  ``quantized_allreduce_plain`` on the same bytes; 24 launches per step;
+  no host wait), ResNet-50 5 steps with ``Compression.fp16`` and ``bf16``
+  through the binding's ``DistributedOptimizer`` (within 2e-2 of
+  [resnet]'s), the TransformerLM 3 steps with ``op=Adasum`` (staged
+  through pinned host memory; losses equal [native]'s), and a 30522 x 1024
+  ``nn.Embedding(sparse=True)`` gradient through ``sparse_allreduce_async``
+  under ``HVDTPU_SPARSE=gather`` and ``dense`` (equal to the dense
+  gradient). It prints wire bytes, the passes' and the staging's device
+  ms, and each step beside [native]'s.
 
 For each path it times 10 more steps on the host (enqueue time, step time,
 calls that made the host wait for the device) and profiles one by kernel
@@ -616,9 +631,10 @@ def model_check(hvd, models, torch):
         fail("flash-attention model logits disagree with dense attention")
 
 
-def transformer_setup(hvd, models):
+def transformer_setup(hvd, models, **opt_kw):
     """The full-width TransformerLM from seed 0, its parameters broadcast,
-    AdamW wrapped by DistributedOptimizer, the train step and one batch."""
+    AdamW wrapped by DistributedOptimizer (``opt_kw``: its options), the
+    train step and one batch."""
     cfg = models.TransformerConfig(
         vocab_size=30522, hidden=1024, layers=24, heads=16, max_len=512,
         causal=True, use_rope=True, attention_impl="flash")
@@ -626,7 +642,7 @@ def transformer_setup(hvd, models):
     model = models.TransformerLM(cfg, device=hvd.device(), generator=gen)
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     opt = hvd.DistributedOptimizer(torch.optim.AdamW(
-        model.parameters(), lr=1e-4, weight_decay=1e-4))
+        model.parameters(), lr=1e-4, weight_decay=1e-4), **opt_kw)
 
     def loss_fn(m, batch):
         x, y = batch
@@ -1149,10 +1165,11 @@ def resnet_check(models):
         fail("bf16 ResNet-50 logits disagree with fp32")
 
 
-def resnet_setup(hvd, models, train):
+def resnet_setup(hvd, models, train, compression=None):
     """ResNet-50 from seed 0, its parameters and SGD state broadcast, the
-    optimizer wrapped by the torch binding's DistributedOptimizer, the
-    has_aux train step, one batch and the FLOPs of a trained image."""
+    optimizer wrapped by the torch binding's DistributedOptimizer (with
+    ``compression``), the has_aux train step, one batch and the FLOPs of a
+    trained image."""
     torch.backends.cudnn.benchmark = True
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = models.ResNet50(num_classes=1000, dtype=torch.bfloat16,
@@ -1168,7 +1185,8 @@ def resnet_setup(hvd, models, train):
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     hvd.broadcast_optimizer_state(opt, root_rank=0)
     opt = hvd.DistributedOptimizer(opt,
-                                   named_parameters=model.named_parameters())
+                                   named_parameters=model.named_parameters(),
+                                   compression=compression)
 
     def loss_fn(m, batch):
         bx, by = batch
@@ -1312,7 +1330,8 @@ def native_phase(train_losses, train_ms, resnet_losses, resnet_ms):
     if len(res["resnet_losses"]) != len(resnet_losses) or \
             diff > NATIVE_RESNET_ATOL:
         fail("[native] ResNet-50 losses differ from [resnet]'s")
-    return res["launches"], bare["transformer_host_ms"]
+    res["bare"] = bare
+    return res["launches"], bare["transformer_host_ms"], res
 
 
 def native_bare_child(out_path, hvd, hvd_torch, models, train):
@@ -1786,6 +1805,452 @@ def elastic_child(out):
     hvd.shutdown()
 
 
+# [compress]: Horovod's gradient-reduction options in a one-rank launcher
+# job on the NCCL-delegated plane. An uncompressed run of the same job is
+# the exact-reduction control: its losses equal [native]'s and its
+# gradients pass the reduction unchanged (the reduction at one rank is the
+# identity). Under int8 or fp8 step 1 equals [native]'s (the reduction
+# comes after the loss). One step's gradients are read back where the
+# inner optimizer reads them: each must lie within one quantization step
+# of its block of the exact gradient, and most must differ from it (the
+# quantized result reached .grad). The losses of steps 2-5 must move off
+# [native]'s by more than the control's (the quantization reached the
+# update) and by at most COMPRESS_LOSS_MOVED of the loss change L1 - Lt:
+# the sound int8 and fp8 runs on an H100 move them by at most 1.9e-4 of
+# it (PERF.md, [compress]), the control by 0.
+COMPRESS_LOSS_MOVED = 2e-3
+COMPRESS_LM_STEPS = 5
+COMPRESS_ADASUM_STEPS = 3
+COMPRESS_TRACE_STEP = 3          # the step whose gradients are checked
+COMPRESS_RESNET_RTOL = 2e-2      # fp16/bf16 on the wire vs [resnet]
+COMPRESS_SPARSE_RTOL = 1e-6
+
+
+def check_written_back(pre, post, codec, block):
+    """Hold one step's gradients after a quantized reduction at one rank
+    (``post``) to the same gradients before it (``pre``). The pipeline
+    quantizes blocks of ``block`` elements of each fused response; a
+    block of an element lies within ``block - 1`` elements of it, so the
+    largest magnitude in the element's tensor over that window bounds the
+    block's scale, and the largest of all gradients does where the window
+    reaches past the tensor's ends. Returns (the largest error in units of
+    that quantization step, elements changed, nonzero elements)."""
+    gmax = max(float(a.abs().max()) for a in pre)
+    worst, changed, nonzero = 0.0, 0, 0
+    for a, b in zip(pre, post):
+        a, b = a.reshape(-1).float(), b.reshape(-1).float()
+        n = a.numel()
+        pad = -n % block
+        chunk = F.pad(a.abs(), (0, pad)).view(-1, block).amax(1)
+        near = torch.maximum(chunk, torch.maximum(
+            F.pad(chunk[1:], (0, 1)), F.pad(chunk[:-1], (1, 0))))
+        window = near.repeat_interleave(block)[:n]
+        window[:block - 1] = gmax
+        window[-(block - 1):] = gmax
+        step = window / codec.qmax
+        if codec.name == "fp8":
+            # e4m3 keeps 3 mantissa bits: one step is at most 1/8 of the
+            # element's own magnitude, above the block's subnormal floor.
+            step = torch.maximum(step, a.abs() / 8)
+        diff = (b - a).abs()
+        worst = max(worst, float((diff / step.clamp_min(1e-30)).max()))
+        changed += int((diff > 0).sum())
+        nonzero += int((a != 0).sum())
+    return worst, changed, nonzero
+
+
+def capture_grads(model):
+    """Each parameter's gradient when backward leaves it (before the
+    reduction) and when the inner optimizer is about to read it (after the
+    reduction wrote it back); returns (pre, post, hooks)."""
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+    params = list(model.parameters())
+    pre, post = [None] * len(params), []
+
+    def keep(p, i):
+        pre[i] = p.grad.detach().clone()
+
+    def read(opt, args, kwargs):
+        if not post:
+            post.extend(p.grad.detach().clone() for p in params)
+    hooks = [p.register_post_accumulate_grad_hook(
+        lambda p, i=i: keep(p, i)) for i, p in enumerate(params)]
+    hooks.append(register_optimizer_step_pre_hook(read))
+    return pre, post, hooks
+
+
+def compress_phase(native_res, resnet_losses):
+    """Drive the gradient-reduction options on the card: a child process
+    runs as rank 0 of a one-rank launcher job (``--compress-child``) and
+    re-initializes between parts with the knobs each needs. Its numbers are
+    held here to [native]'s (TransformerLM losses and step) and [resnet]'s
+    (ResNet-50 losses). Returns the flash kernels' launches of its
+    TransformerLM runs."""
+    import socket
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="hvd-compress-") as tmp:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            master = sock.getsockname()[1]
+        env = dict(os.environ, HVDTPU_RANK="0", HVDTPU_SIZE="1",
+                   HVDTPU_LOCAL_RANK="0", HVDTPU_LOCAL_SIZE="1",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(master))
+        out = os.path.join(tmp, "compress.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--compress-child",
+             out], env=env, timeout=900)
+        if proc.returncode != 0:
+            fail(f"[compress] the one-rank launcher job exited "
+                 f"{proc.returncode}")
+        with open(out) as f:
+            res = json.load(f)
+    ref = native_res["transformer_losses"]
+    launches = {}
+
+    def steps_beside(ms, model):
+        """[native]'s step of ``model`` with its timelines (counted steps)
+        and without any ([host] median), and ``ms`` minus each."""
+        on = native_res[f"{model}_ms"]
+        off = native_res["bare"][f"{model}_host_ms"]
+        return (f"{on:.1f} with timelines ({ms - on:+.1f} ms), {off:.1f} "
+                f"without ({ms - off:+.1f} ms)")
+
+    def moved(got):
+        """How far steps 2.. moved off [native]'s, in units of its loss
+        change L1 - Lt."""
+        return [abs(g - w) / max(abs(ref[0] - w), 1e-30)
+                for g, w in zip(got[1:], ref[1:])]
+
+    def check_lm(label, r):
+        if r["per_step_launches"] != [dict.fromkeys(
+                ("fwd", "bwd_dkv", "bwd_dq"), 24)] * len(r["losses"]):
+            fail(f"[compress] {label}: expected 24 launches of each "
+                 f"no-dropout kernel per step: {r['per_step_launches']}")
+        if r["host_waits"]:
+            fail(f"[compress] {label}: {r['host_waits']} calls made the host "
+                 "wait for the device")
+        for n, c in r["launches"].items():
+            launches[n] = launches.get(n, 0) + c
+
+    exact = res["exact"]
+    control = moved(exact["losses"])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(exact["losses"], ref))
+    g = exact["grads"]
+    log(f"[compress] exact-reduction control (no compression): losses "
+        f"{exact['losses']}: max relative difference to [native]'s "
+        f"{rel:.2e} (limit {NATIVE_TRANSFORMER_RTOL:.0e}); steps 2..5 moved "
+        f"{', '.join(f'{m:.2e}' for m in control)} of L1-Lt; step "
+        f"{COMPRESS_TRACE_STEP}: {g['changed']} of {g['nonzero']} nonzero "
+        f"gradient elements changed by the reduction; device time of one "
+        f"step {exact['device_ms']:.2f} ms")
+    if len(exact["losses"]) != COMPRESS_LM_STEPS or \
+            rel > NATIVE_TRANSFORMER_RTOL or g["changed"] or \
+            not g["nonzero"]:
+        fail("[compress] the uncompressed control differs from [native]")
+    check_lm("control", exact)
+    for codec in ("int8", "fp8"):
+        r = res[codec]
+        got = r["losses"]
+        step1 = abs(got[0] - ref[0]) / abs(ref[0])
+        m = moved(got)
+        g = r["grads"]
+        log(f"[compress] {codec}: losses {got} against [native]'s {ref}: "
+            f"step 1 relative difference {step1:.2e} (limit "
+            f"{NATIVE_TRANSFORMER_RTOL:.0e}); steps 2..5 moved "
+            f"{', '.join(f'{v:.2e}' for v in m)} of the loss change L1-Lt "
+            f"(limits: above the control's {max(control):.2e}, at most "
+            f"{COMPRESS_LOSS_MOVED:.0e})")
+        log(f"[compress] {codec}: step {COMPRESS_TRACE_STEP}'s gradients as "
+            f"the optimizer read them: largest error {g['worst']:.3f} "
+            f"quantization steps of the exact gradient (limit 1); "
+            f"{g['changed']} of {g['nonzero']} nonzero elements changed "
+            f"(limit: at least half)")
+        added = r["device_ms"] - exact["device_ms"]
+        log(f"[compress] {codec}: {r['responses']} quantized responses per "
+            f"step, {r['bytes'] / 2 ** 20:.1f} MiB of gradients; wire bytes "
+            f"{r['wire_bytes'] / 2 ** 20:.1f} MiB = {r['wire_ratio']:.4f} of "
+            f"fp32's; device time of one step {r['device_ms']:.2f} ms "
+            f"against the control's {exact['device_ms']:.2f}: the pipeline "
+            f"(quantize/dequantize passes, size-1 all-to-all and allgather) "
+            f"adds {added:.2f} ms; most added: "
+            + ", ".join(f"{k[:60]} {v:+.2f} ms" for k, v in r["added"])
+            + f"; step ms (median of steps 2..5) {r['step_ms']:.1f} against "
+            f"[native]'s {steps_beside(r['step_ms'], 'transformer')}; calls "
+            f"that made the host wait {r['host_waits']}")
+        if len(got) != COMPRESS_LM_STEPS or step1 > NATIVE_TRANSFORMER_RTOL:
+            fail(f"[compress] {codec}: step 1 loss differs from [native]'s")
+        if not all(math.isfinite(v) for v in got) or not got[-1] < got[0]:
+            fail(f"[compress] {codec}: losses did not descend: {got}")
+        if not max(control) < max(m) <= COMPRESS_LOSS_MOVED:
+            fail(f"[compress] {codec}: losses not moved by the quantization "
+                 "within the limit")
+        if not g["worst"] <= 1.0 or not 2 * g["changed"] >= g["nonzero"] \
+                or not g["nonzero"]:
+            fail(f"[compress] {codec}: the gradients the optimizer read are "
+                 "not the quantized reduction")
+        if not r["responses"]:
+            fail(f"[compress] {codec}: no response ran the quantized "
+                 "pipeline")
+        check_lm(codec, r)
+    for codec in ("fp16", "bf16"):
+        r = res[codec]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                      resnet_losses))
+        log(f"[compress] ResNet-50 {codec} through the binding's "
+            f"DistributedOptimizer: losses {r['losses']}; max relative "
+            f"difference to [resnet]'s {rel:.2e} (limit "
+            f"{COMPRESS_RESNET_RTOL:.0e}); step ms (median of steps 2..5) "
+            f"{r['step_ms']:.1f} against [native]'s ResNet-50 step "
+            f"{steps_beside(r['step_ms'], 'resnet')}")
+        if rel > COMPRESS_RESNET_RTOL or not r["losses"][-1] < \
+                r["losses"][0]:
+            fail(f"[compress] ResNet-50 {codec}: losses off [resnet]'s")
+    r = res["adasum"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], ref))
+    log(f"[compress] Adasum: losses {r['losses']} against [native]'s: max "
+        f"relative difference {rel:.2e} (limit "
+        f"{NATIVE_TRANSFORMER_RTOL:.0e}); staging copies of one step: "
+        f"device to host {r['d2h_ms']:.2f} ms, host to device "
+        f"{r['h2d_ms']:.2f} ms of device time, "
+        f"{r['staged_bytes'] / 2 ** 30:.2f} GiB each way; device time of "
+        f"one step {r['device_ms']:.2f} ms; step ms (median of steps "
+        f"2..{COMPRESS_ADASUM_STEPS}) {r['step_ms']:.1f} against "
+        f"[native]'s {steps_beside(r['step_ms'], 'transformer')}")
+    if len(r["losses"]) != COMPRESS_ADASUM_STEPS or \
+            rel > NATIVE_TRANSFORMER_RTOL:
+        fail("[compress] Adasum losses differ from [native]'s")
+    check_lm("Adasum", r)
+    for path in ("gather", "dense"):
+        r = res["sparse_" + path]
+        log(f"[compress] sparse embedding gradient, HVDTPU_SPARSE={path}: "
+            f"{r['nnz_rows']} of {r['rows']} rows touched (density "
+            f"{r['density']:.4f}); path taken {r['path']}; bytes handed to "
+            f"the collectives {r['collective_bytes'] / 2 ** 20:.2f} MiB "
+            f"(dense table {r['table_bytes'] / 2 ** 20:.2f} MiB); "
+            f"{r['ms']:.2f} ms; relative error against the dense gradient "
+            f"{r['rel_err']:.2e} (binding), {r['ops_rel_err']:.2e} "
+            f"(ops.sparse_allreduce) (limit {COMPRESS_SPARSE_RTOL:.0e})")
+        if max(r["rel_err"], r["ops_rel_err"]) > COMPRESS_SPARSE_RTOL \
+                or r["path"] != path:
+            fail(f"[compress] sparse {path}: differs from the dense "
+                 "gradient")
+    return launches
+
+
+def compress_child(out_path):
+    """The child of ``compress_phase`` (``chip_smoke.py --compress-child
+    OUT``): rank 0 of a one-rank launcher job on the NCCL-delegated plane,
+    re-initialized for each part with its knobs. Writes its results to
+    OUT."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import socket
+    from horovod_tpu_torch import native as hnative
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch import basics, models, train
+    from horovod_tpu_torch.compression import codecs
+    from horovod_tpu_torch.ops import flash_attention as fa
+    res = {}
+
+    def start(**knobs):
+        """(Re)start the one-rank job with ``knobs`` (HVDTPU_ names, None
+        unsets) on a fresh native-core listener and process-group port."""
+        hvd.shutdown()
+        for k, v in knobs.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        os.environ["HVDTPU_PEERS"] = \
+            f"127.0.0.1:{hnative.reserve_listen_port()}"
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            os.environ["MASTER_PORT"] = str(sock.getsockname()[1])
+        hvd.init()
+        rt = basics.runtime()
+        if rt.mode != basics.MODE_SPMD or rt.backend.name != "nccl-global":
+            fail(f"[compress] expected a launcher job on the NCCL-delegated "
+                 f"plane, got {rt.mode}, {rt.backend.name}")
+        log(f"[compress] rank 0 of 1, backend {rt.backend.name}, knobs "
+            f"{ {k: v for k, v in knobs.items() if v is not None} }")
+        return rt.backend
+
+    def host_waits(fn):
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return out, [f"{w.filename}:{w.lineno}" for w in got
+                     if "called a synchronizing" in str(w.message)]
+
+    def lm_run(label, steps, counters=None, trace=None, **opt_kw):
+        """``steps`` counted TransformerLM steps, then one more under the
+        profiler (its device time). ``counters()`` is read around each
+        counted step; ``trace(pre, post)`` checks the gradients of step
+        COMPRESS_TRACE_STEP."""
+        cfg, model, step, x, y = transformer_setup(hvd, models, **opt_kw)
+        # The RoPE tables are built once per process, at set-up, not in a
+        # counted step (their copy from the host waits for the device).
+        from horovod_tpu_torch.models import transformer as tmod
+        tmod._rope_tables(cfg.max_len, cfg.hidden // cfg.heads, hvd.device())
+        fa.reset_launches()
+        losses, times, per_step, waits, counts = [], [], [], [], []
+        checked = None
+        for i in range(steps):
+            torch.cuda.synchronize()
+            prev = dict(fa.LAUNCHES)
+            c0 = counters() if counters else ()
+            armed = (capture_grads(model) if trace and
+                     i + 1 == COMPRESS_TRACE_STEP else None)
+            t0 = time.perf_counter()
+            loss, w = host_waits(lambda: step(model, (x, y)))
+            loss = loss.item()
+            times.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            losses.append(loss)
+            waits += w
+            per_step.append({n: fa.LAUNCHES[n] - prev[n] for n in
+                             ("fwd", "bwd_dkv", "bwd_dq")})
+            if counters:
+                counts.append([b - a for a, b in zip(c0, counters())])
+            if armed:
+                pre, post, hooks = armed
+                for h in hooks:
+                    h.remove()
+                checked = trace(pre, post)
+                del pre, post, armed
+            log(f"  [compress] {label} step {i + 1}: loss {loss:.6f}  "
+                f"{times[-1]:.1f} ms  launches {per_step[-1]}"
+                + (f"  counters {counts[-1]}" if counters else ""))
+        for site in sorted(set(waits)):
+            log(f"  [compress] {label}: x{waits.count(site)} host wait at "
+                f"{site}")
+        launched = {n: fa.LAUNCHES[n] for n in ("fwd", "bwd_dkv", "bwd_dq")}
+        kernels = device_kernels(lambda: step(model, (x, y)).item())
+        del model, step
+        torch.cuda.empty_cache()
+        return {"losses": losses, "step_ms": _median(times[1:]),
+                "launches": launched, "per_step_launches": per_step,
+                "host_waits": len(waits), "counts": counts,
+                "grads": checked, "kernels": kernels,
+                "device_ms": sum(ms for _, ms, _ in kernels)}
+
+    def grads_check(codec=None, block=None):
+        def trace(pre, post):
+            if codec is None:
+                changed = sum(int((a != b).sum()) for a, b in zip(pre, post))
+                worst = 0.0
+                nonzero = sum(int((a != 0).sum()) for a in pre)
+            else:
+                worst, changed, nonzero = check_written_back(pre, post,
+                                                             codec, block)
+            return {"worst": worst, "changed": changed, "nonzero": nonzero}
+        return trace
+
+    # -- the exact-reduction control, then the catch-all wire rule -------
+    start(HVDTPU_COMPRESSION=None)
+    r = lm_run("control", COMPRESS_LM_STEPS, trace=grads_check())
+    res["exact"] = r
+    exact_kernels = {k: ms for k, ms, _ in r.pop("kernels")}
+    for codec in ("int8", "fp8"):
+        backend = start(HVDTPU_COMPRESSION=codec)
+        c = codecs.get_codec(codec)
+        r = lm_run(codec, COMPRESS_LM_STEPS, counters=lambda b=backend: (
+            b.quantized_responses, b.quantized_bytes,
+            b.quantized_wire_bytes),
+            trace=grads_check(c, backend._q_block))
+        per = list(zip(*r.pop("counts")))
+        mine = {}
+        for k, ms, _ in r.pop("kernels"):
+            mine[k] = mine.get(k, 0.0) + ms
+        added = {k: ms - exact_kernels.get(k, 0.0) for k, ms in mine.items()}
+        for k, ms in exact_kernels.items():
+            added.setdefault(k, -ms)
+        r.update(responses=_median(per[0]), bytes=_median(per[1]),
+                 wire_bytes=_median(per[2]),
+                 wire_ratio=_median(per[2]) / max(_median(per[1]), 1),
+                 added=sorted(added.items(), key=lambda kv: -kv[1])[:3])
+        res[codec] = r
+
+    # -- cast compressors through the binding, Adasum, sparse gather -------
+    backend = start(HVDTPU_COMPRESSION=None, HVDTPU_SPARSE="gather")
+    for codec in ("fp16", "bf16"):
+        rmodel, rstep, rx, ry, _ = resnet_setup(
+            hvd_torch, models, train,
+            compression=getattr(hvd_torch.Compression, codec))
+        losses, times = [], []
+        for i in range(RESNET_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(rstep(rmodel, (rx, ry)).item())
+            times.append((time.perf_counter() - t0) * 1e3)
+            log(f"  [compress] ResNet-50 {codec} step {i + 1}: loss "
+                f"{losses[-1]:.6f}  {times[-1]:.1f} ms")
+        res[codec] = {"losses": losses, "step_ms": _median(times[1:])}
+        del rmodel, rstep
+        torch.cuda.empty_cache()
+
+    r = lm_run("Adasum", COMPRESS_ADASUM_STEPS, op=hvd.Adasum)
+    kernels = r.pop("kernels")
+    r.update(d2h_ms=sum(ms for k, ms, _ in kernels
+                        if k.startswith("Memcpy DtoH")),
+             h2d_ms=sum(ms for k, ms, _ in kernels
+                        if k.startswith("Memcpy HtoD")),
+             staged_bytes=sum(b.numel() * b.element_size()
+                              for bufs in backend._pinned.values()
+                              for b in bufs))
+    res["adasum"] = r
+
+    def sparse_run(path, backend):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        emb = torch.nn.Embedding(30522, 1024, sparse=True, device="cuda")
+        with torch.no_grad():
+            emb.weight.copy_(torch.randn(emb.weight.shape, device="cuda",
+                                         generator=gen))
+        dense = torch.nn.Embedding(30522, 1024, device="cuda")
+        dense.load_state_dict(emb.state_dict())
+        ids = torch.randint(0, 30522, (TRAIN_BATCH, 512), device="cuda",
+                            generator=gen)
+        for m in (emb, dense):
+            m(ids).square().mean().backward()
+        want = dense.weight.grad
+        grad = emb.weight.grad
+        nnz = int(grad.coalesce().indices().shape[1])
+        plane = basics.runtime().coordinator._sparse
+        counts = dict(plane.path_counts)
+        torch.cuda.synchronize()
+        b0 = backend.response_bytes
+        t0 = time.perf_counter()
+        got = hvd_torch.synchronize(hvd_torch.sparse_allreduce_async(
+            grad, name=f"emb.{path}"))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        moved = backend.response_bytes - b0
+        taken = [p for p in ("gather", "dense")
+                 if plane.path_counts[p] > counts[p]]
+        got = got.to_dense() if got.is_sparse else got
+        ops = hvd.sparse_allreduce(hvd.SparseGradient.from_coo(grad),
+                                   name=f"emb.ops.{path}")
+        torch.cuda.synchronize()
+
+        def rel(a):
+            return float((a - want).norm() / want.norm())
+        return {"nnz_rows": nnz, "rows": 30522, "density": nnz / 30522,
+                "path": taken[0] if len(taken) == 1 else str(taken),
+                "collective_bytes": moved,
+                "table_bytes": want.numel() * want.element_size(),
+                "ms": ms, "rel_err": rel(got), "ops_rel_err": rel(ops)}
+    res["sparse_gather"] = sparse_run("gather", backend)
+    backend = start(HVDTPU_SPARSE="dense")
+    res["sparse_dense"] = sparse_run("dense", backend)
+    hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -1840,7 +2305,7 @@ def main():
     resnet_losses, resnet_ms, resnet_host = resnet_phase(hvd_torch, models,
                                                          train)
     torch.cuda.empty_cache()
-    native_launches, native_ms = native_phase(
+    native_launches, native_ms, native_res = native_phase(
         train_losses, (train_ms, train_host), resnet_losses,
         (resnet_ms, resnet_host))
     log("[launches] [native] " + ", ".join(
@@ -1848,6 +2313,9 @@ def main():
     elastic_launches = elastic_phase(train_losses, train_ms, native_ms)
     log("[launches] [elastic] " + ", ".join(
         f"{n}={c}" for n, c in elastic_launches.items()))
+    compress_launches = compress_phase(native_res, resnet_losses)
+    log("[launches] [compress] " + ", ".join(
+        f"{n}={c}" for n, c in compress_launches.items()))
     log("[launches] " + ", ".join(f"{n}={c}" for n, c in launches.items()))
     if set(launches) != set(KERNELS) or not all(launches.values()):
         fail(f"a kernel was not launched on its path: {launches}")
@@ -1877,5 +2345,7 @@ if __name__ == "__main__":
         native_child(sys.argv[2], bare=sys.argv[3:4] == ["bare"])
     elif sys.argv[1:2] == ["--elastic-child"]:
         elastic_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--compress-child"]:
+        compress_child(sys.argv[2])
     else:
         main()

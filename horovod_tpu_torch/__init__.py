@@ -28,7 +28,10 @@ from .ops.collectives import (
     grouped_allreduce_async, grouped_allreduce_async_, grouped_reducescatter,
     grouped_reducescatter_async, join, poll, reducescatter,
     reducescatter_async, synchronize)
+from .ops.compression import Compression
 from .ops.reduce_ops import Adasum, Average, Max, Min, Product, Sum
+from .ops.sparse import (SparseGradient, sparse_allreduce,
+                         sparse_allreduce_async)
 from .process_sets import (ProcessSet, add_process_set, global_process_set,
                            process_set_by_id, remove_process_set)
 from .train import DistributedOptimizer, make_train_step

@@ -4,7 +4,8 @@ operation_manager.cc:42-80).
 
 - ``LoopbackBackend``: a single-process job. The coordinator's Python
   plane fuses and hands it each bucket; collectives over one rank are the
-  scaling alone.
+  scaling alone (Adasum over one rank included), and a wire-compressed
+  bucket runs both legs of the quantized pipeline.
 - ``TcpBackend`` (``tcp_backend.py``): a launcher job on CPU tensors. The
   native core negotiates, fuses and moves the bytes over its TCP ring.
 - ``NcclGlobalBackend`` (``nccl_global.py``): the native core negotiates
@@ -88,6 +89,49 @@ class LoopbackBackend(Backend):
         scale_(tensors, prescale)
         scale_(tensors, postscale)
         return tensors
+
+    def allreduce_quantized(self, tensors, op, ps, codec, block,
+                            prescale=None, postscale=None, residuals=None):
+        """The quantized pipeline at one rank (the JAX package's
+        ``XlaSingleBackend.allreduce_quantized`` with one device): the
+        bucket's float32 values, prescaled and with their residuals added,
+        are quantized and dequantized for the reduce-scatter leg, scaled,
+        and quantized and dequantized again for the allgather leg. Returns
+        ``(outs, new_residuals)``; ``new_residuals[i]`` is tensor i's
+        input minus its first leg's reconstruction (None without
+        ``residuals``)."""
+        from ..compression.codecs import padded_len
+        from ..ops import reduce_ops
+        if op not in (reduce_ops.Sum, reduce_ops.Average):
+            raise ValueError("quantized allreduce supports Sum/Average, got "
+                             f"{reduce_ops.op_name(op)}")
+        flats = []
+        for i, t in enumerate(tensors):
+            f = t.reshape(-1).to(torch.float32)
+            if prescale is not None and prescale != 1.0:
+                f = f * prescale
+            if residuals is not None:
+                f = f + residuals[i].reshape(-1)
+            flats.append(f)
+        flat = torch.cat(flats) if len(flats) > 1 else flats[0]
+        total = flat.numel()
+        padded = padded_len(total, 1, block)
+        if padded != total:
+            flat = torch.nn.functional.pad(flat, (0, padded - total))
+        q, s = codec.encode(flat, block)
+        red = codec.decode(q, s, block)
+        err = flat - red
+        if postscale is not None and postscale != 1.0:
+            red = red * postscale
+        q2, s2 = codec.encode(red, block)
+        out = codec.decode(q2, s2, block)
+        outs, errs, off = [], [], 0
+        for t in tensors:
+            n = t.numel()
+            outs.append(out[off:off + n].reshape(t.shape).to(t.dtype))
+            errs.append(err[off:off + n].reshape(t.shape))
+            off += n
+        return outs, (errs if residuals is not None else None)
 
     def allgather(self, tensors, ps):
         return [t.clone() for t in tensors]

@@ -19,7 +19,11 @@ what the controller negotiated).
   decides. An alltoall of CUDA tensors is staged through pinned host
   memory: the copy to the host is issued on the backend's stream and the
   request enters the negotiation once it has landed; the result goes back
-  to the card the same way.
+  to the card the same way. Adasum (VHDD in the core) is staged likewise,
+  one request per tensor, through pinned buffers reused across steps.
+- Under ``HVDTPU_COMPRESSION``'s catch-all wire rule (``int8``/``fp8``),
+  every float sum response of at least the threshold runs the quantized
+  pipeline (``_quantized_allreduce``); per-call codecs are ignored here.
 
 Every call runs on the coordinator's cycle thread, the only thread that
 issues collectives after ``init``; on CUDA it runs on the backend's own
@@ -68,7 +72,8 @@ def reducescatter_counts(rows, n):
 
 
 class _Staged:
-    """An alltoall of a CUDA tensor on its way to the host."""
+    """An alltoall (or the tensors of an Adasum allreduce) of CUDA tensors
+    on their way to the host."""
 
     __slots__ = ("host", "splits", "event")
 
@@ -178,6 +183,27 @@ class NcclGlobalBackend(TcpBackend):
         self.responses = 0
         self.response_bytes = 0
         self.fusion_copy_bytes = 0
+        # Quantized allreduce: only the env policy's catch-all wire rule
+        # applies here (fused native responses carry handles, not names;
+        # no error feedback). Every rank parses the same env.
+        from ..compression import codecs
+        from ..compression.policy import simple_wire_policy
+        codec_name, self._q_block, self._q_threshold = simple_wire_policy()
+        self._q_codec = (codecs.CODECS[codec_name] if codec_name is not None
+                         else None)
+        if self._q_codec is not None:
+            get_logger().info(
+                "%s: quantized allreduce on (codec=%s block=%d threshold="
+                "%d; no error feedback on the delegated plane)", self.name,
+                codec_name, self._q_block, self._q_threshold)
+        # Quantized responses, their input bytes and what the codec puts
+        # on the wire for them (payload and scales).
+        self.quantized_responses = 0
+        self.quantized_bytes = 0
+        self.quantized_wire_bytes = 0
+        # Pinned host buffers of the Adasum staging, reused across steps:
+        # (numel, dtype) -> free buffers.
+        self._pinned = {}
 
     # -- process sets -----------------------------------------------------
     def add_process_set(self, ps):
@@ -200,6 +226,13 @@ class NcclGlobalBackend(TcpBackend):
         return None if self.runtime is None else self.runtime.timeline
 
     def _enqueue_entry(self, entry):
+        from ..ops import reduce_ops
+        if entry.kind == "allreduce" and entry.op == reduce_ops.Adasum:
+            # VHDD stays on the host plane (the core refuses a delegated
+            # Adasum): CUDA tensors are staged through pinned memory.
+            if entry.device.type == "cuda":
+                return self._stage_adasum(entry)
+            return super()._enqueue_entry(entry)
         req = _DELEGATED.get(entry.kind)
         if req is None:
             if entry.kind == "alltoall" and entry.device.type == "cuda":
@@ -255,14 +288,64 @@ class NcclGlobalBackend(TcpBackend):
         self._staged.append(p)
         return p
 
+    def _stage_adasum(self, entry):
+        """Copy an Adasum entry's CUDA tensors into pinned host buffers on
+        the backend's stream; ``_enqueue_staged`` enters them into the
+        negotiation, one request per tensor, once they have landed."""
+        with torch.cuda.stream(self._stream):
+            wait_ready(self._stream, [entry])
+            hosts = []
+            for t in entry.tensors:
+                t.record_stream(self._stream)
+                host = self._take_pinned(t)
+                host.copy_(t, non_blocking=True)
+                hosts.append(host)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        p = _Pending(entry, [], _Staged(hosts, None, event))
+        self._staged.append(p)
+        return p
+
+    def _take_pinned(self, t):
+        free = self._pinned.get((t.numel(), t.dtype))
+        if free:
+            return free.pop().view(t.shape)
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+
+    def _unpack_adasum_to_device(self, entry, hosts, core, handles):
+        """Each result into its pinned buffer, then back to its tensor on
+        the backend's stream. A buffer returns to the pool once its copy is
+        issued: the next copy into it is issued on the same stream, so it
+        runs after this one."""
+        for h, host in zip(handles, hosts):
+            core.output(h, host.dtype, out=host)
+        with torch.cuda.stream(self._stream):
+            for t, host in zip(entry.tensors, hosts):
+                t.copy_(host, non_blocking=True)
+                self._pinned.setdefault((host.numel(), host.dtype),
+                                        []).append(host.reshape(-1))
+        return entry.tensors
+
     def _enqueue_staged(self, p):
-        """Enter a staged alltoall into the negotiation once its bytes are
-        on the host (an event query: the thread never waits); returns
-        whether it did."""
+        """Enter a staged alltoall or Adasum into the negotiation once its
+        bytes are on the host (an event query: the thread never waits);
+        returns whether it did."""
         staged = p.unpack
         if not staged.event.query():
             return False
         entry = p.entry
+        if isinstance(staged.host, list):   # Adasum, one request a tensor
+            ps = self._native_ps(entry.process_set)
+            pre = 1.0 if entry.prescale is None else float(entry.prescale)
+            post = 1.0 if entry.postscale is None \
+                else float(entry.postscale)
+            p.handles = [self.core.enqueue(
+                ps, nm, native.REQ_ALLREDUCE, host,
+                red_op=native.RED_ADASUM, prescale=pre, postscale=post)
+                for nm, host in zip(_sub_names(entry), staged.host)]
+            p.unpack = functools.partial(self._unpack_adasum_to_device,
+                                         entry, staged.host)
+            return True
         h = self.core.enqueue(
             self._native_ps(entry.process_set), entry.name,
             native.REQ_ALLTOALL, staged.host,
@@ -425,8 +508,18 @@ class NcclGlobalBackend(TcpBackend):
                 else:
                     seg.copy_(item[1].reshape(-1))
                     scale_([seg], pre)
-        self._dist.all_reduce(buf, op=self._red[op], group=group)
-        scale_([buf], d["postscale"])
+        if (self._q_codec is not None and op == native.RED_SUM
+                and dtype.is_floating_point
+                and buf.numel() >= self._q_threshold):
+            out = self._quantized_allreduce(buf, group, len(ranks),
+                                            d["postscale"])
+            if fused:
+                buf = out
+            else:
+                buf.copy_(out)
+        else:
+            self._dist.all_reduce(buf, op=self._red[op], group=group)
+            scale_([buf], d["postscale"])
         if fused:
             mine = [(item[1].reshape(-1), seg) for item, seg
                     in zip(local, buf.split(sizes)) if item is not None]
@@ -436,6 +529,40 @@ class NcclGlobalBackend(TcpBackend):
             self.fusion_copy_bytes += 2 * sum(
                 m.numel() for m, _ in mine) * esize
         return sum(sizes) * esize
+
+    def _quantized_allreduce(self, buf, group, n, post):
+        """The quantized pipeline of one fused response, on the backend's
+        stream (the JAX package's ``qallreduce``, xla_global.py:315-343):
+        pad to a multiple of n·block (blocks fall on the same elements at
+        any such length), encode the n chunks, ``all_to_all_single`` the
+        payload and the float32 scales, dequantize and sum in float32,
+        postscale, re-encode, ``all_gather_into_tensor`` both, and decode
+        into the response's dtype. Returns the reduced flat tensor."""
+        from ..compression.codecs import padded_len
+        codec, block = self._q_codec, self._q_block
+        total = buf.numel()
+        padded = padded_len(total, n, block)
+        flat = buf.to(torch.float32)
+        if padded != total:
+            flat = torch.nn.functional.pad(flat, (0, padded - total))
+        q, s = codec.encode(flat.view(n, padded // n), block)
+        q_in, s_in = torch.empty_like(q), torch.empty_like(s)
+        self._dist.all_to_all_single(q_in, q, group=group)
+        self._dist.all_to_all_single(s_in, s, group=group)
+        red = codec.decode(q_in, s_in, block).sum(dim=0)
+        if post != 1.0:
+            red = red * post
+        q2, s2 = codec.encode(red, block)
+        qg = q2.new_empty(n * q2.numel())
+        sg = s2.new_empty(n * s2.numel())
+        self._dist.all_gather_into_tensor(qg, q2, group=group)
+        self._dist.all_gather_into_tensor(sg, s2, group=group)
+        out = codec.decode(qg, sg, block, dtype=buf.dtype)[:total]
+        self.quantized_responses += 1
+        self.quantized_bytes += total * buf.element_size()
+        self.quantized_wire_bytes += codec.wire_bytes(total, block,
+                                                      buf.element_size())
+        return out
 
     def _delegated_broadcast(self, d, group, ranks, dtype, local):
         count, root = int(d["sizes"][0]), int(d["sizes"][1])

@@ -133,10 +133,11 @@ class TensorEntry:
 
     __slots__ = ("name", "kind", "tensors", "op", "root_rank", "splits",
                  "prescale", "postscale", "process_set", "handle",
-                 "enqueue_time", "ready", "device", "site")
+                 "enqueue_time", "ready", "device", "site", "codec")
 
     def __init__(self, name, kind, tensors, process_set, op=None,
-                 root_rank=None, splits=None, prescale=None, postscale=None):
+                 root_rank=None, splits=None, prescale=None, postscale=None,
+                 codec=None):
         self.name = name
         self.kind = kind
         self.tensors = tensors
@@ -150,6 +151,11 @@ class TensorEntry:
         self.enqueue_time = time.monotonic()
         self.handle.enqueue_time = self.enqueue_time
         self.site = None
+        # Compression: a codec name at submit (an explicit
+        # Compression.int8-style marker), resolved by the plane's stamp()
+        # into the (name, block) pair the fusion plane groups by; None =
+        # uncompressed.
+        self.codec = codec
         self.device = tensors[0].device if tensors else None
         self.ready = None
         if self.device is not None and self.device.type == "cuda":
@@ -225,6 +231,14 @@ class Coordinator:
         self._m_stalled_oldest = telemetry.gauge(
             "hvd_coordinator_stalled_oldest_age_seconds",
             "Age of the oldest stalled operation")
+        # Gradient-compression plane (compression/): None when
+        # HVDTPU_COMPRESSION is unset, built on demand for an explicit
+        # per-call codec. Sparse gradient plane (ops/sparse.py): None when
+        # HVDTPU_SPARSE is unset (sparse gradients then densify).
+        from . import compression as compression_mod
+        from .ops import sparse as sparse_mod
+        self._compression = compression_mod.make_plane(runtime)
+        self._sparse = sparse_mod.make_plane()
 
     # -- lifecycle ---------------------------------------------------------
     def start(self):
@@ -264,6 +278,18 @@ class Coordinator:
 
     # -- submission (framework-thread side) --------------------------------
     def submit(self, entry):
+        if entry.kind == "allreduce" and (self._compression is not None
+                                          or entry.codec is not None):
+            if self._compression is None:
+                # An explicit Compression.int8-style marker with the env
+                # policy unset: build the plane now.
+                from . import compression as compression_mod
+                self._compression = compression_mod.make_plane(
+                    self.runtime, force=True)
+                self.runtime.backend.compression_plane = self._compression
+            # Raises the Adasum and process-set rejects here, on the
+            # submitting thread.
+            self._compression.stamp(entry)
         key = (entry.process_set.process_set_id, entry.name)
         if entry.name and entry.site is None:
             entry.site = format_user_frame(skip=3)
@@ -335,6 +361,9 @@ class Coordinator:
         need this rank to negotiate."""
         backend.entry_done_cb = self._entry_done
         backend.runtime = self.runtime   # the timeline, for its spans
+        # The tcp-native plane runs wire codecs with error feedback through
+        # the compression plane (None when off).
+        backend.compression_plane = self._compression
         while self._running:
             if not (self._queue or backend.pending_count()):
                 self._wakeup.wait(timeout=IDLE_CYCLE_S)
@@ -444,15 +473,16 @@ class Coordinator:
                                 None)
 
     def _run_fused_allreduces(self, backend, entries, timeline):
-        """Group by (process set, op, scales, dtype) and split each group
-        into buckets under the fusion threshold, a whole entry at a time;
-        one backend call per bucket."""
+        """Group by (process set, op, scales, dtype, codec) and split each
+        group into buckets under the fusion threshold, a whole entry at a
+        time; one backend call per bucket. The codec is part of the key: a
+        compressed bucket runs one quantized pipeline."""
         groups = {}
         for e in entries:
             pre = 1.0 if e.prescale is None else float(e.prescale)
             post = 1.0 if e.postscale is None else float(e.postscale)
             key = (e.process_set.process_set_id, e.op, pre, post,
-                   e.tensors[0].dtype)
+                   e.tensors[0].dtype, e.codec)
             groups.setdefault(key, []).append(e)
         for group in groups.values():
             cur, cur_bytes = [], 0
@@ -496,9 +526,13 @@ class Coordinator:
                     self._m_fused_bytes.labels(dtype=str(flat[0].dtype)).inc(
                         sum(_nbytes(t) for t in flat))
                 with self._issue(bucket):
-                    results = backend.allreduce(
-                        flat, e0.op, e0.process_set, prescale=e0.prescale,
-                        postscale=e0.postscale)
+                    if e0.codec is not None:
+                        results = self._run_compressed(backend, bucket, flat,
+                                                       e0)
+                    else:
+                        results = backend.allreduce(
+                            flat, e0.op, e0.process_set,
+                            prescale=e0.prescale, postscale=e0.postscale)
                     done = self._done_event()
                 i = 0
                 for e in bucket:
@@ -517,6 +551,31 @@ class Coordinator:
             self._log.error("fused allreduce failed: %s", exc)
             for e in bucket:
                 e.handle._fail(_wrap_error(exc))
+
+    def _run_compressed(self, backend, bucket, flat, e0):
+        """One compressed bucket. Cast codecs (fp16/bf16, from the env
+        policy) ride a plain allreduce in the narrow dtype; wire codecs
+        (int8/fp8) run the backend's quantized pipeline with the plane's
+        error-feedback residuals."""
+        from .compression import codecs
+        codec_name, block = e0.codec
+        codec = codecs.CODECS[codec_name]
+        plane = self._compression
+        if not codec.wire:
+            cast = [codec.encode(t, block)[0] for t in flat]
+            results = backend.allreduce(
+                cast, e0.op, e0.process_set, prescale=e0.prescale,
+                postscale=e0.postscale)
+            plane.record(codec_name, bucket, flat, None)
+            return [r.to(t.dtype) for r, t in zip(results, flat)]
+        residuals = plane.residuals_in(bucket)
+        results, new_residuals = backend.allreduce_quantized(
+            flat, e0.op, e0.process_set, codec, block, prescale=e0.prescale,
+            postscale=e0.postscale, residuals=residuals)
+        if new_residuals is not None:
+            plane.store_residuals(bucket, new_residuals)
+        plane.record(codec_name, bucket, flat, new_residuals)
+        return results
 
     def _run_single(self, backend, e, timeline):
         try:

@@ -234,15 +234,28 @@ class NativeCore:
         e = self._lib.hvd_core_handle_error(self._ctx, handle)
         return e.decode() if e else ""
 
-    def output(self, handle, dtype):
-        """The completed handle's output, copied into a new CPU tensor."""
+    def output(self, handle, dtype, out=None):
+        """The completed handle's output, copied into a new CPU tensor, or
+        into ``out`` (a contiguous CPU tensor of the output's size, such as
+        a pinned staging buffer)."""
         ndim = self._lib.hvd_core_output_ndim(self._ctx, handle)
         if ndim < 0:
             raise NativeError(f"unknown handle {handle}")
+        nbytes = self._lib.hvd_core_output_nbytes(self._ctx, handle)
+        if out is not None:
+            if out.numel() * out.element_size() != nbytes \
+                    or not out.is_contiguous():
+                raise NativeError(
+                    f"output of handle {handle}: {nbytes} bytes do not fit "
+                    f"the given tensor of {tuple(out.shape)}")
+            if nbytes and self._lib.hvd_core_output_copy(
+                    self._ctx, handle, ctypes.c_void_p(out.data_ptr()),
+                    nbytes) != 0:
+                raise NativeError("output copy failed")
+            return out
         shape_arr = (ctypes.c_int64 * max(ndim, 1))()
         self._lib.hvd_core_output_shape(self._ctx, handle, shape_arr)
         shape = tuple(shape_arr[i] for i in range(ndim))
-        nbytes = self._lib.hvd_core_output_nbytes(self._ctx, handle)
         out = torch.empty(shape, dtype=dtype)
         if out.numel() * out.element_size() != nbytes:
             # Shapeless payloads (join's int32) come back flat.

@@ -77,31 +77,38 @@ def _submit(entry):
 
 
 class _Derived:
-    """A handle whose result is ``fn`` of another handle's, computed once
-    (the in-place write-back, unwrapping one tensor of a group)."""
+    """A handle whose result is ``fn`` of other handles' results, computed
+    once (the in-place write-back, unwrapping one tensor of a group,
+    combining the allgathers of a sparse gradient)."""
 
-    __slots__ = ("_handle", "_fn", "_done", "_result", "name")
+    __slots__ = ("_handles", "_fn", "_done", "_result", "name")
 
-    def __init__(self, handle, fn):
-        self._handle = handle
+    def __init__(self, handles, fn):
+        self._handles = handles
         self._fn = fn
         self._done = False
         self._result = None
-        self.name = handle.name
+        self.name = handles[0].name
 
     def poll(self):
-        return self._handle.poll()
+        return all(h.poll() for h in self._handles)
 
     def wait(self, timeout=None):
         if not self._done:
-            self._result = self._fn(self._handle.wait(timeout))
+            self._result = self._fn(*[h.wait(timeout)
+                                      for h in self._handles])
             self._done = True
         return self._result
 
 
 def then(handle, fn):
     """The handle of ``fn(result of handle)``."""
-    return _Derived(handle, fn)
+    return _Derived([handle], fn)
+
+
+def then_all(handles, fn):
+    """The handle of ``fn(result of each handle, ...)``."""
+    return _Derived(list(handles), fn)
 
 
 def _check_set(process_set):
@@ -139,84 +146,93 @@ def _empty_group_handle(kind):
 # allreduce
 # --------------------------------------------------------------------------
 def _allreduce(kind, tensors, average, name, op, prescale_factor,
-               postscale_factor, process_set):
+               postscale_factor, process_set, codec=None):
     op = reduce_ops.handle_average_backwards_compatibility(op, average)
     _check_set(process_set)
     if not tensors:
         return _empty_group_handle(kind)
+    for t in tensors:
+        if t.is_sparse:
+            raise ValueError(
+                "allreduce takes dense tensors; reduce a sparse gradient "
+                "with sparse_allreduce, or densify it")
     entry = TensorEntry(name or _auto_name(kind), "allreduce",
                         [_dense(t) for t in tensors], process_set, op=op,
-                        prescale=prescale_factor, postscale=postscale_factor)
+                        prescale=prescale_factor, postscale=postscale_factor,
+                        codec=codec)
     return _in_place(tensors, _submit(entry))
 
 
 def grouped_allreduce_async_(tensors, average=None, name=None, op=None,
                              prescale_factor=1.0, postscale_factor=1.0,
-                             process_set=global_process_set):
+                             process_set=global_process_set, codec=None):
     """Reduce every tensor across the set in place: multiply by
     ``prescale_factor``, reduce with ``op`` (default Average), multiply by
     ``postscale_factor``. The group is one operation (reference:
     horovod/torch/mpi_ops.py:375). The handle resolves to the same
-    tensors."""
+    tensors. ``codec`` names a wire codec (``"int8"``, ``"fp8"``) that
+    runs the quantized pipeline; cast compressors run at the binding."""
     return _allreduce("grouped_allreduce", list(tensors), average, name, op,
-                      prescale_factor, postscale_factor, process_set)
+                      prescale_factor, postscale_factor, process_set, codec)
 
 
 def grouped_allreduce_async(tensors, average=None, name=None, op=None,
                             prescale_factor=1.0, postscale_factor=1.0,
-                            process_set=global_process_set):
+                            process_set=global_process_set, codec=None):
     """Reduced copies of ``tensors``."""
     return _allreduce("grouped_allreduce", [t.clone() for t in tensors],
                       average, name, op, prescale_factor, postscale_factor,
-                      process_set)
+                      process_set, codec)
 
 
 def allreduce_async_(tensor, average=None, name=None, op=None,
                      prescale_factor=1.0, postscale_factor=1.0,
-                     process_set=global_process_set):
+                     process_set=global_process_set, codec=None):
     return then(_allreduce("allreduce", [tensor], average, name, op,
-                           prescale_factor, postscale_factor, process_set),
-                lambda r: r[0])
+                           prescale_factor, postscale_factor, process_set,
+                           codec), lambda r: r[0])
 
 
 def allreduce_async(tensor, average=None, name=None, op=None,
                     prescale_factor=1.0, postscale_factor=1.0,
-                    process_set=global_process_set):
+                    process_set=global_process_set, codec=None):
     """Reduced copy of ``tensor`` (reference: horovod/torch/mpi_ops.py:154)."""
     return then(_allreduce("allreduce", [tensor.clone()], average, name, op,
-                           prescale_factor, postscale_factor, process_set),
-                lambda r: r[0])
+                           prescale_factor, postscale_factor, process_set,
+                           codec), lambda r: r[0])
 
 
 def grouped_allreduce_(tensors, average=None, name=None, op=None,
                        prescale_factor=1.0, postscale_factor=1.0,
-                       process_set=global_process_set):
+                       process_set=global_process_set, codec=None):
     return synchronize(grouped_allreduce_async_(
         tensors, average, name, op, prescale_factor, postscale_factor,
-        process_set))
+        process_set, codec))
 
 
 def grouped_allreduce(tensors, average=None, name=None, op=None,
                       prescale_factor=1.0, postscale_factor=1.0,
-                      process_set=global_process_set):
+                      process_set=global_process_set, codec=None):
     return synchronize(grouped_allreduce_async(
         tensors, average, name, op, prescale_factor, postscale_factor,
-        process_set))
+        process_set, codec))
 
 
 def allreduce_(tensor, average=None, name=None, op=None, prescale_factor=1.0,
-               postscale_factor=1.0, process_set=global_process_set):
+               postscale_factor=1.0, process_set=global_process_set,
+               codec=None):
     return synchronize(allreduce_async_(
         tensor, average, name, op, prescale_factor, postscale_factor,
-        process_set))
+        process_set, codec))
 
 
 def allreduce(tensor, average=None, name=None, op=None, prescale_factor=1.0,
-              postscale_factor=1.0, process_set=global_process_set):
+              postscale_factor=1.0, process_set=global_process_set,
+              codec=None):
     """Reduced copy of ``tensor`` (reference: horovod/torch/mpi_ops.py:211)."""
     return synchronize(allreduce_async(
         tensor, average, name, op, prescale_factor, postscale_factor,
-        process_set))
+        process_set, codec))
 
 
 # --------------------------------------------------------------------------

@@ -21,10 +21,15 @@ by name.
 ``hvd.elastic`` (``torch/elastic.py``) holds ``TorchState``,
 ``ElasticSampler`` and ``run``.
 
-Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-item: sparse allreduce (item 10; ``sparse_as_dense=True`` densifies),
-compression other than ``Compression.none`` (item 9), Adasum (item 10)
-and ``metrics_snapshot`` (item 13).
+Gradient-reduction options: ``compression=`` on every allreduce and on
+``DistributedOptimizer`` (``Compression.fp16``/``bf16`` cast at this layer
+around the collective; ``int8``/``fp8`` mark the entry for the data
+plane's quantized pipeline), ``op=Adasum`` (the native core's VHDD on the
+host; CUDA tensors staged through pinned memory) and
+``sparse_allreduce_async`` for COO gradients (``HVDTPU_SPARSE`` picks
+allgather-of-slices or densify per tensor). Not ported yet, and raising
+``NotImplementedError`` with its ROADMAP item: ``metrics_snapshot``
+(item 13).
 """
 
 import functools
@@ -39,7 +44,6 @@ from ..basics import (ccl_built, cross_rank, cross_size, cuda_built,
                       mpi_built, mpi_enabled, mpi_threads_supported,
                       nccl_built, rank, rocm_built, shutdown, size)
 from ..ops import collectives as _c
-from ..ops import compression as _compression
 from ..ops import reduce_ops
 from ..ops.collectives import poll, synchronize
 from ..ops.compression import Compression
@@ -101,15 +105,29 @@ def metrics_snapshot():
 
 
 def _op(op, average):
-    op = reduce_ops.handle_average_backwards_compatibility(op, average)
-    if op == Adasum:
-        raise _not_ported("Adasum", 10)
-    return op
+    return reduce_ops.handle_average_backwards_compatibility(op, average)
 
 
-def _check_dense(tensor):
-    if tensor.is_sparse:
-        raise _not_ported("sparse allreduce", 10)
+def _allreduce_impl(tensor, op, name, prescale, postscale, process_set,
+                    inplace, compression):
+    """One allreduce with its compression: a wire codec (``int8``/``fp8``)
+    marks the entry for the data plane's quantized pipeline; a cast
+    compressor (``fp16``/``bf16``) casts here, reduces the narrow copy in
+    place and casts the result back (into ``tensor`` for ``inplace``)."""
+    kw = dict(op=op, name=name, prescale_factor=prescale,
+              postscale_factor=postscale, process_set=process_set)
+    wire = getattr(compression, "wire_codec", None)
+    plain = _c.allreduce_async_ if inplace else _c.allreduce_async
+    if compression in (None, Compression.none) or wire is not None:
+        return plain(tensor, codec=wire, **kw)
+    narrow, ctx = compression.compress(tensor)
+    if narrow is tensor:
+        return plain(tensor, **kw)
+
+    def finish(reduced):
+        out = compression.decompress(reduced, ctx)
+        return tensor.copy_(out) if inplace else out
+    return _c.then(_c.allreduce_async_(narrow, **kw), finish)
 
 
 # --------------------------------------------------------------------------
@@ -121,24 +139,16 @@ def allreduce_async(tensor, average=None, name=None, compression=None,
     """Handle of the reduced copy of ``tensor``. Argument order follows the
     reference (horovod/torch/mpi_ops.py:211), so positional callers bind
     correctly."""
-    _compression.check(compression)
-    _check_dense(tensor)
-    return _c.allreduce_async(tensor, op=_op(op, average), name=name,
-                              prescale_factor=prescale_factor,
-                              postscale_factor=postscale_factor,
-                              process_set=process_set)
+    return _allreduce_impl(tensor, _op(op, average), name, prescale_factor,
+                           postscale_factor, process_set, False, compression)
 
 
 def allreduce_async_(tensor, average=None, name=None, compression=None,
                      op=None, prescale_factor=1.0, postscale_factor=1.0,
                      process_set=global_process_set):
     """Handle of the in-place reduction of ``tensor``."""
-    _compression.check(compression)
-    _check_dense(tensor)
-    return _c.allreduce_async_(tensor, op=_op(op, average), name=name,
-                               prescale_factor=prescale_factor,
-                               postscale_factor=postscale_factor,
-                               process_set=process_set)
+    return _allreduce_impl(tensor, _op(op, average), name, prescale_factor,
+                           postscale_factor, process_set, True, compression)
 
 
 def allreduce(tensor, average=None, name=None, compression=None,
@@ -157,9 +167,66 @@ def allreduce_(tensor, average=None, name=None, compression=None,
         postscale_factor, process_set=process_set))
 
 
+def _done_handle(name, result):
+    from ..coordinator import Handle
+    basics.runtime().check_alive()
+    h = Handle(name)
+    h._complete(result)
+    return h
+
+
 def sparse_allreduce_async(tensor, name=None, op=None,
                            process_set=global_process_set):
-    raise _not_ported("sparse_allreduce_async", 10)
+    """Average (or sum) a sparse COO tensor across the set by allgathering
+    its indices and values (reference: horovod/torch/mpi_ops.py:556, the
+    same allgather formulation); the handle resolves to a coalesced COO
+    tensor, its duplicates summed on the tensor's device.
+
+    With the sparse plane on (``HVDTPU_SPARSE``) and a row-sparse tensor
+    (one sparse dim, an embedding's gradient), the density policy may pick
+    densify-then-allreduce past the crossover: the handle then resolves to
+    a dense tensor."""
+    if not tensor.is_sparse:
+        raise ValueError("sparse_allreduce_async requires a sparse tensor")
+    op = Average if op is None else op
+    if op not in (Average, Sum):
+        raise ValueError(
+            f"sparse_allreduce_async supports Average/Sum, got "
+            f"{reduce_ops.op_name(op)}")
+    t = tensor.coalesce()
+    if not _spmd():
+        return _done_handle(name or "sparse_allreduce", t)
+    from ..ops import sparse as sparse_ops
+    plane = sparse_ops._plane()
+    # A per-call-site name: one shared fallback would pool every unnamed
+    # tensor into one density EMA and collide their .idx/.val names.
+    nm = name or _c._auto_name("sparse_allreduce")
+    if plane is not None and t.sparse_dim() == 1:
+        path = sparse_ops.choose_path(
+            plane, nm, int(t.indices().shape[1]), tuple(t.shape),
+            t.values().element_size(), 8, process_set)
+        if path == "dense":
+            return allreduce_async(t.to_dense(), name=nm, op=op,
+                                   process_set=process_set)
+    shape = tuple(t.shape)
+    world = len(process_set.ranks)
+
+    def combine(gathered):
+        idx, vals = gathered
+        out = torch.sparse_coo_tensor(idx.t(), vals, size=shape).coalesce()
+        if op == Average:
+            out = torch.sparse_coo_tensor(out.indices(),
+                                          out.values() / world,
+                                          size=shape).coalesce()
+        return out
+    return sparse_ops.gather_async(
+        nm, [("idx", t.indices().t()), ("val", t.values())], process_set,
+        combine)
+
+
+def sparse_allreduce(tensor, name=None, op=None,
+                     process_set=global_process_set):
+    return synchronize(sparse_allreduce_async(tensor, name, op, process_set))
 
 
 def grouped_allreduce_async(tensors, average=None, name=None, op=None,
@@ -168,8 +235,6 @@ def grouped_allreduce_async(tensors, average=None, name=None, op=None,
     """Handle of the reduced copies of ``tensors`` (reference:
     horovod/torch/mpi_ops.py:375)."""
     tensors = list(tensors)
-    for t in tensors:
-        _check_dense(t)
     return _c.grouped_allreduce_async(tensors, op=_op(op, average),
                                       name=name,
                                       prescale_factor=prescale_factor,
@@ -181,8 +246,6 @@ def grouped_allreduce_async_(tensors, average=None, name=None, op=None,
                              prescale_factor=1.0, postscale_factor=1.0,
                              process_set=global_process_set):
     tensors = list(tensors)
-    for t in tensors:
-        _check_dense(t)
     return _c.grouped_allreduce_async_(tensors, op=_op(op, average),
                                        name=name,
                                        prescale_factor=prescale_factor,
@@ -314,6 +377,25 @@ def broadcast_optimizer_state(optimizer, root_rank=0,
 # --------------------------------------------------------------------------
 # the grad-hook optimizer
 # --------------------------------------------------------------------------
+def _sparse_grad_handle(param, op, name, process_set, postscale):
+    """Submit a sparse gradient from the optimizer hook (the gradient is
+    complete when the hook fires); waiting writes the result back to
+    ``param.grad``, re-sparsified when the density policy resolved dense,
+    so the layout the inner optimizer sees never changes."""
+    grad = param.grad
+    if postscale != 1.0:
+        grad = grad * postscale
+    handle = sparse_allreduce_async(grad, name=name, op=op,
+                                    process_set=process_set)
+
+    def write_back(out):
+        if not out.is_sparse:
+            out = out.to_sparse(grad.sparse_dim()).coalesce()
+        param.grad = out
+        return out
+    return _c.then(handle, write_back)
+
+
 def DistributedOptimizer(optimizer, named_parameters=None,
                          compression=None, backward_passes_per_step=1,
                          op=Average, gradient_predivide_factor=1.0,
@@ -336,13 +418,27 @@ def DistributedOptimizer(optimizer, named_parameters=None,
     the sum and by ``gradient_predivide_factor / backward_passes_per_step``
     after the average. In a single-process job no hook is registered and
     the update is the inner one.
+
+    ``compression`` applies to every dense gradient (casts here, wire
+    codecs in the data plane); ``op=Adasum`` reduces each gradient with
+    Adasum. Sparse gradients (``nn.Embedding(sparse=True)``):
+    ``sparse_as_dense=True`` densifies them; otherwise, with
+    ``HVDTPU_SPARSE`` set, they go through :func:`sparse_allreduce_async`
+    and the result written back to ``.grad`` stays sparse whichever path
+    the policy picked, so that sparse-only optimizers
+    (``torch.optim.SparseAdam``) survive a change of path; with the knob
+    unset they densify.
     """
-    _compression.check(compression)
-    if op == Adasum:
-        raise _not_ported("DistributedOptimizer op=Adasum", 10)
-    if op not in (Average, Sum):
-        raise ValueError(f"DistributedOptimizer op must be Average or Sum, "
-                         f"got {reduce_ops.op_name(op)}")
+    if compression is Compression.none:
+        compression = None
+    if op not in (Average, Sum, Adasum):
+        raise ValueError(f"DistributedOptimizer op must be Average, Sum or "
+                         f"Adasum, got {reduce_ops.op_name(op)}")
+    if op == Adasum and getattr(compression, "wire_codec", None):
+        raise ValueError(
+            f"compression={compression.wire_codec!r} with op=Adasum: "
+            "Adasum needs exact per-rank gradients (quantizing them "
+            "silently changes the scale-invariant combination)")
     if gradient_predivide_factor != 1.0 and op != Average:
         raise ValueError("gradient_predivide_factor needs op=Average")
     if getattr(optimizer, "_hvd_wrapped", False):
@@ -414,14 +510,16 @@ def DistributedOptimizer(optimizer, named_parameters=None,
         if passes[p] % k or p.grad is None:
             return
         if p.grad.is_sparse:
-            if not sparse_as_dense:
-                raise _not_ported("sparse gradients without "
-                                  "sparse_as_dense=True", 10)
+            from ..ops import sparse as sparse_ops
+            if not sparse_as_dense and sparse_ops.enabled():
+                optimizer._hvd_handles[p] = _sparse_grad_handle(
+                    p, op, f"grad.{name_of[p]}", process_set, postscale)
+                return
             p.grad = p.grad.to_dense()
-        optimizer._hvd_handles[p] = _c.allreduce_async_(
+        optimizer._hvd_handles[p] = allreduce_async_(
             p.grad, op=op, name=f"grad.{name_of[p]}",
             prescale_factor=prescale, postscale_factor=postscale,
-            process_set=process_set)
+            compression=compression, process_set=process_set)
 
     owned_ids = {id(p) for p in owned}
     for _, p in named:

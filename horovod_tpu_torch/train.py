@@ -16,7 +16,8 @@ either.
 
 from . import basics
 from .ops import reduce_ops
-from .ops.collectives import allreduce, grouped_allreduce_
+from .ops.collectives import allreduce, grouped_allreduce_, synchronize
+from .ops.compression import Compression
 from .process_sets import global_process_set
 from .utils import envparse
 
@@ -28,35 +29,51 @@ class DistributedOptimizer:
 
     Args:
       optimizer: the inner ``torch.optim.Optimizer``.
-      op: Average (default) or Sum.
+      op: Average (default), Sum or Adasum (each gradient its own
+        combination: never fused with another).
       backward_passes_per_step: local gradient accumulation. ``.grad``
         accumulates over this many backward passes; the k-th ``step()``
         averages the sum over k, reduces it and updates.
       prescale_factor, postscale_factor: multiply gradients before / after
         the reduction.
-      compression: wire codecs are not ported yet; anything but None
-        raises.
+      compression: ``Compression.fp16``/``bf16`` cast the gradients around
+        the reduction; ``Compression.int8``/``fp8`` run it as the data
+        plane's quantized pipeline (``horovod_tpu_torch/compression/``).
+        A wire codec with Adasum raises.
       process_set: the ranks that reduce together (default all).
 
-    In a launcher job the gradients are reduced after backward by one
+    In a launcher job the dense gradients are reduced after backward by one
     grouped allreduce named ``grad`` through the coordinator, whose native
-    core fuses them into buckets under ``HVDTPU_FUSION_THRESHOLD``; in a
-    single-process job the reduction is the identity (the JAX package's
-    ``_reduce``, ``horovod_tpu/jax/__init__.py:291-304``).
+    core fuses them into buckets under ``HVDTPU_FUSION_THRESHOLD``; sparse
+    gradients (``nn.Embedding(sparse=True)``) go through
+    ``ops.sparse.sparse_allreduce_async`` first, named ``grad.sp<i>``, and
+    keep their layout. In a single-process job the reduction is the
+    identity for every option (the JAX package's ``_reduce`` and
+    ``_reduce_quantized``, ``horovod_tpu/jax/__init__.py:262-430``).
     """
 
     def __init__(self, optimizer, op=reduce_ops.Average,
                  backward_passes_per_step=1, prescale_factor=None,
                  postscale_factor=None, compression=None,
                  process_set=global_process_set):
-        if op not in (reduce_ops.Average, reduce_ops.Sum):
-            raise NotImplementedError(
-                f"DistributedOptimizer op={reduce_ops.op_name(op)} is not "
-                "ported yet (Adasum: ROADMAP queue A, item 10)")
-        if compression is not None:
-            raise NotImplementedError(
-                "DistributedOptimizer compression is not ported yet "
-                "(ROADMAP queue A, item 9)")
+        if op not in (reduce_ops.Average, reduce_ops.Sum,
+                      reduce_ops.Adasum):
+            raise ValueError(
+                f"DistributedOptimizer op must be Average, Sum or Adasum, "
+                f"got {reduce_ops.op_name(op)}")
+        if compression is Compression.none:
+            compression = None
+        self._wire_codec = getattr(compression, "wire_codec", None)
+        if compression is not None and self._wire_codec is None and \
+                not hasattr(compression, "compress"):
+            raise ValueError(
+                f"compression must be a Compression member, got "
+                f"{compression!r}")
+        if self._wire_codec is not None and op == reduce_ops.Adasum:
+            raise ValueError(
+                f"compression={self._wire_codec!r} supports Average/Sum "
+                "gradient reductions only (Adasum's scale-invariant "
+                "combination needs exact per-rank gradients)")
         if envparse.get_bool(envparse.ZERO):
             raise NotImplementedError(
                 "HVDTPU_ZERO: the ZeRO-1 sharded update is not ported yet "
@@ -64,6 +81,7 @@ class DistributedOptimizer:
         self.process_set = process_set
         self.inner = optimizer
         self.op = op
+        self.compression = compression
         self.k = int(backward_passes_per_step)
         if self.k < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
@@ -74,26 +92,55 @@ class DistributedOptimizer:
     def zero_grad(self, set_to_none=True):
         self.inner.zero_grad(set_to_none=set_to_none)
 
-    def _grads(self):
-        grads = [p.grad for group in self.inner.param_groups
-                 for p in group["params"] if p.grad is not None]
-        if any(g.is_sparse for g in grads):
-            raise NotImplementedError(
-                "sparse gradients are not ported yet (ROADMAP queue A, "
-                "item 10)")
-        return grads
+    def _params(self):
+        return [p for group in self.inner.param_groups
+                for p in group["params"] if p.grad is not None]
 
     def synchronize(self):
-        """Reduce every ``.grad`` across ranks, in place."""
-        grads = self._grads()
+        """Reduce every ``.grad`` across ranks (in place for dense ones)."""
+        params = self._params()
         if self.k > 1:
-            for g in grads:
-                g.div_(self.k)
-        if basics.runtime().mode == basics.MODE_SPMD:
-            grouped_allreduce_(grads, op=self.op, name="grad",
-                               prescale_factor=self.prescale or 1.0,
-                               postscale_factor=self.postscale or 1.0,
-                               process_set=self.process_set)
+            for p in params:
+                p.grad.div_(self.k)
+        if basics.runtime().mode != basics.MODE_SPMD:
+            return
+        sparse = [p for p in params if p.grad.is_sparse]
+        # Every sparse gradient is submitted before the dense reduction
+        # waits, so that its gathers overlap it.
+        handles = [(p, self._submit_sparse(i, p))
+                   for i, p in enumerate(sparse)]
+        dense = [p.grad for p in params if not p.grad.is_sparse]
+        if dense:
+            self._reduce_dense(dense)
+        for p, h in handles:
+            out = synchronize(h)
+            if self.postscale is not None:
+                out = out * self.postscale
+            p.grad = out.to_sparse(p.grad.sparse_dim()).coalesce()
+
+    def _submit_sparse(self, i, p):
+        from .ops import sparse as sparse_ops
+        grad = p.grad
+        if self.prescale is not None:
+            grad = grad * self.prescale
+        return sparse_ops.sparse_allreduce_async(
+            grad, op=self.op, name=f"grad.sp{i}",
+            process_set=self.process_set)
+
+    def _reduce_dense(self, grads):
+        kw = dict(op=self.op, name="grad",
+                  prescale_factor=self.prescale or 1.0,
+                  postscale_factor=self.postscale or 1.0,
+                  process_set=self.process_set)
+        if self.compression is None or self._wire_codec is not None:
+            grouped_allreduce_(grads, codec=self._wire_codec, **kw)
+            return
+        pairs = [self.compression.compress(g) for g in grads]
+        narrow = [n if n is not g else n.clone()
+                  for (n, _), g in zip(pairs, grads)]
+        grouped_allreduce_(narrow, **kw)
+        for g, n, (_, ctx) in zip(grads, narrow, pairs):
+            g.copy_(self.compression.decompress(n, ctx))
 
     def step(self):
         """Count one backward pass; on every k-th, reduce the accumulated

@@ -166,6 +166,39 @@ SIGKILL_DEADLINE = register(
     "SIGKILL_DEADLINE", "10",
     "Driver: seconds between SIGTERM and SIGKILL on worker stop")
 
+# -- gradient compression (compression/) -------------------------------------
+COMPRESSION = register(
+    "COMPRESSION", "",
+    "Gradient-compression policy: a codec (none/fp16/bf16/int8/fp8) or "
+    "';'-separated '<name-glob>=<codec>' rules, first match wins")
+COMPRESSION_THRESHOLD = register(
+    "COMPRESSION_THRESHOLD", "1024",
+    "Min elements before the compression policy applies to a tensor")
+COMPRESSION_BLOCK = register(
+    "COMPRESSION_BLOCK", "256",
+    "Quantization block size: one f32 scale per this many values")
+COMPRESSION_ERROR_FEEDBACK = register(
+    "COMPRESSION_ERROR_FEEDBACK", "1",
+    "Carry per-tensor quantization error into the next step's "
+    "gradient (the Python and tcp-native planes; not the delegated one)")
+
+# -- sparse/embedding gradients (ops/sparse.py) --------------------------------
+SPARSE = register(
+    "SPARSE", "",
+    "Sparse-gradient path policy: auto/gather/dense or ';'-separated "
+    "'<name-glob>=<mode>' rules, first match wins; auto picks "
+    "allgather-of-slices vs densify-then-allreduce per tensor from the "
+    "EMA-smoothed measured row density against a world-scaled "
+    "crossover. Unset: every sparse gradient densifies")
+SPARSE_THRESHOLD = register(
+    "SPARSE_THRESHOLD", "1.0",
+    "Scales the auto-mode crossover density "
+    "(theta * 2*row_bytes / ((n-1)*(row_bytes+index_bytes)))")
+SPARSE_EMA = register(
+    "SPARSE_EMA", "0.8",
+    "History weight of the per-name density EMA the auto policy "
+    "smooths path decisions with (0 = instantaneous)")
+
 # -- kernels ----------------------------------------------------------------
 BRIDGE_FLASH = register(
     "BRIDGE_FLASH", "auto",

@@ -9,8 +9,12 @@ port's launcher whose slot 1 or slot 0 is killed
 (tests/torch_port_elastic_worker.py, a tiny TransformerLM under
 ``TorchState``): the survivor aborts its communicators, resets in process
 on its own card (the respawned slot takes its slot's card) and finishes
-with the parameters of an uninterrupted run; each needs 2 GPUs. Each
-skips elsewhere:
+with the parameters of an uninterrupted run; each needs 2 GPUs. And the
+``reduce`` job of tests/test_torch_port_spmd.py over NCCL at 2 and 4
+ranks: the catch-all int8 and fp8 quantized pipeline against
+``quantized_allreduce_plain`` of the stacked inputs, Adasum (staged
+through pinned host memory) against the VHDD oracle, sparse gathers
+against the dense sum; needs 4 GPUs. Each skips elsewhere:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_nccl.py
 """
@@ -19,7 +23,9 @@ import pytest
 import torch
 
 from test_torch_port_collectives import CHECKS, SET_CHECKS, _run_job
-from test_torch_port_spmd import _finish, _ok, _port_job, _read
+from test_torch_port_spmd import (_finish, _ok, _port_job, _read,
+                                  check_adasum, check_catch_all,
+                                  dense_sparse_sum)
 
 pytestmark = pytest.mark.cuda
 
@@ -107,3 +113,50 @@ def test_nccl_elastic_job_survives_a_killed_rank(elastic_jobs, killed):
     for k in want.files:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-6,
                                    err_msg=k)
+
+
+REDUCE_JOBS = [("int8", 2), ("int8", 4), ("fp8", 2)]
+
+
+@pytest.fixture(scope="module")
+def reduce_jobs(tmp_path_factory):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices (a multi-GPU machine)")
+    import numpy as np
+    done = {}
+    for wire, size in REDUCE_JOBS:
+        out = tmp_path_factory.mktemp(f"nccl-reduce-{wire}-{size}")
+        procs = _port_job("reduce", "gloo", size, out, {
+            "PORT_TEST_DEVICE": "cuda", "HVDTPU_SPARSE": "gather",
+            "HVDTPU_COMPRESSION": f"sp*=none;grad.sp*=none;{wire}"})
+        job = _read(out, size, _finish(procs))
+        _ok(job)
+        done[wire, size] = (job, [dict(np.load(out / f"r{r}.npz"))
+                                  for r in range(size)])
+    return done
+
+
+@pytest.mark.parametrize("wire,size", REDUCE_JOBS)
+def test_nccl_catch_all_quantized_allreduce_equals_the_plain_pipeline(
+        reduce_jobs, wire, size):
+    check_catch_all(reduce_jobs[wire, size][1], size, wire)
+
+
+@pytest.mark.parametrize("size", [2, 4])
+def test_nccl_adasum_staged_through_the_host_equals_vhdd(reduce_jobs, size):
+    check_adasum(reduce_jobs["int8", size][1], size)
+
+
+@pytest.mark.parametrize("size", [2, 4])
+def test_nccl_sparse_gathers_equal_the_dense_sum(reduce_jobs, size):
+    import numpy as np
+    job, got = reduce_jobs["int8", size]
+    dense, _ = dense_sparse_sum(size)
+    for r in range(size):
+        assert job["res"][r]["sparse_paths"]["gather"] == 4
+        assert job["res"][r]["sparse_train_equal"]
+        assert job["res"][r]["sparse_hook_equal"]
+        for key, div in (("sp_sum", 1), ("sp_avg", size), ("sp_bind", size),
+                         ("spq_rows", 1)):
+            np.testing.assert_allclose(got[r][key], dense / div, rtol=1e-6,
+                                       atol=1e-6)

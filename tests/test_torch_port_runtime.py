@@ -175,7 +175,10 @@ def test_knobs_and_reduce_ops_match_the_jax_package():
         "STALL_SHUTDOWN_TIME_SECONDS", "METRICS", "LEGACY_AUTO_NAMES",
         "ELASTIC", "ELASTIC_CHECK_INTERVAL", "START_TIMEOUT", "KV_RETRIES",
         "KV_BACKOFF", "KV_DEADLINE", "HEARTBEAT_INTERVAL",
-        "HEARTBEAT_TIMEOUT", "SIGKILL_DEADLINE"}
+        "HEARTBEAT_TIMEOUT", "SIGKILL_DEADLINE", "COMPRESSION",
+        "COMPRESSION_THRESHOLD", "COMPRESSION_BLOCK",
+        "COMPRESSION_ERROR_FEEDBACK", "SPARSE", "SPARSE_THRESHOLD",
+        "SPARSE_EMA"}
     for name, knob in tenv.KNOBS.items():
         assert getattr(tenv, name) == name
         assert knob["default"] == jenv.KNOBS[name]["default"]

@@ -1,8 +1,9 @@
 """Horovod's PyTorch API of the port (``horovod_tpu_torch.torch``) against
 the JAX package's (``horovod_tpu.torch``) at size 1, in this process, where
 the JAX package's binding runs its single-process path: the same calls give
-the same values, types, dtypes and in-place behaviour. Also: the modes not
-ported yet raise with their ROADMAP item, the optimizer wrapper's checks,
+the same values, types, dtypes and in-place behaviour. Also: the mode not
+ported yet raises with its ROADMAP item, the reduction options (compression,
+Adasum, sparse allreduce) run at size 1, the optimizer wrapper's checks,
 an LR scheduler built before wrapping, the port's modules import no JAX,
 and ``examples/pytorch_mnist.py`` runs on the port, in one process and in
 a 2-rank gloo job.
@@ -188,22 +189,47 @@ def test_every_public_name_of_the_jax_package_binding():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda m: m.allreduce(_x(), compression=m.Compression.fp16), 9),
-    (lambda m: m.allreduce_async_(_x(), compression=m.Compression.int8), 9),
-    (lambda m: m.DistributedOptimizer(
-        torch.optim.SGD([torch.nn.Parameter(torch.ones(2))], lr=0.1),
-        compression=m.Compression.bf16), 9),
-    (lambda m: m.allreduce(_x(), op=m.Adasum), 10),
-    (lambda m: m.DistributedOptimizer(
-        torch.optim.SGD([torch.nn.Parameter(torch.ones(2))], lr=0.1),
-        op=m.Adasum), 10),
-    (lambda m: m.sparse_allreduce_async(_x().to_sparse()), 10),
-    (lambda m: m.allreduce(_x().to_sparse()), 10),
     (lambda m: m.metrics_snapshot(), 13),
 ])
 def test_modes_not_ported_raise_with_their_roadmap_item(port, call, item):
     with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
         call(port)
+
+
+def _sgd():
+    return torch.optim.SGD([torch.nn.Parameter(torch.ones(2))], lr=0.1)
+
+
+def _plain_int8(x):
+    from horovod_tpu_torch.compression import codecs
+    return codecs.quantized_allreduce_plain(x[None], "int8", 256)
+
+
+@pytest.mark.parametrize("call,want", [
+    # Cast compressors: exact on these small integers.
+    (lambda m: m.allreduce(_x(), compression=m.Compression.fp16), _x),
+    (lambda m: m.allreduce(_x(), compression=m.Compression.bf16), _x),
+    # A wire codec runs both legs of the quantized pipeline at one rank.
+    (lambda m: m.synchronize(m.allreduce_async_(
+        _x(), compression=m.Compression.int8)), lambda: _plain_int8(_x())),
+    (lambda m: m.allreduce(_x(), op=m.Adasum), _x),
+    (lambda m: m.sparse_allreduce_async(_x().to_sparse()).wait().to_dense(),
+     _x),
+    (lambda m: type(m.DistributedOptimizer(
+        _sgd(), compression=m.Compression.bf16)).__name__,
+     lambda: "_Distributed"),
+    (lambda m: type(m.DistributedOptimizer(_sgd(), op=m.Adasum)).__name__,
+     lambda: "_Distributed"),
+])
+def test_reduction_options_run_at_size_one(port, call, want):
+    # The modes this test's predecessor expected to raise (compression,
+    # Adasum, sparse allreduce) are ported.
+    got = call(port)
+    if isinstance(got, torch.Tensor):
+        assert got.dtype == torch.float32 and torch.equal(got, want())
+        assert not torch.equal(_plain_int8(_x()), _x())
+    else:
+        assert got == want()
 
 
 @pytest.mark.parametrize("profile", [False, True])

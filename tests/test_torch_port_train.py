@@ -187,8 +187,6 @@ def test_local_accumulation_equals_one_step_on_the_whole_batch(port):
 
 
 @pytest.mark.parametrize("kwargs,env", [
-    ({"op": thvd.Adasum}, {}),
-    ({"compression": "int8"}, {}),
     ({}, {"HVDTPU_ZERO": "1"}),
 ])
 def test_unported_optimizer_modes_raise(kwargs, env, monkeypatch):
@@ -196,4 +194,19 @@ def test_unported_optimizer_modes_raise(kwargs, env, monkeypatch):
         monkeypatch.setenv(k, v)
     p = torch.nn.Parameter(torch.zeros(2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train.DistributedOptimizer(torch.optim.SGD([p], lr=0.1), **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,error", [
+    ({"op": thvd.Adasum, "compression": thvd.Compression.int8},
+     "Average/Sum"),
+    ({"compression": "int8"}, "Compression member"),
+    ({"op": thvd.Max}, "Average, Sum or Adasum"),
+])
+def test_optimizer_rejects_what_the_jax_package_rejects(kwargs, error):
+    # Adasum and compression are ported (they raised NotImplementedError
+    # before); a wire codec with Adasum, a codec name instead of a
+    # Compression member, and a non-gradient op raise ValueError.
+    p = torch.nn.Parameter(torch.zeros(2))
+    with pytest.raises(ValueError, match=error):
         train.DistributedOptimizer(torch.optim.SGD([p], lr=0.1), **kwargs)
