@@ -64,6 +64,19 @@ paths at full width:
   under ``HVDTPU_SPARSE=gather`` and ``dense`` (equal to the dense
   gradient). It prints wire bytes, the passes' and the staging's device
   ms, and each step beside [native]'s.
+- ``[zero]``: ZeRO-1 in a one-rank launcher job (``--zero-child``): a
+  replicated control run, then the TransformerLM 5 steps under
+  ``HVDTPU_ZERO=1`` (gradients reduce-scattered into the rank's shard, the
+  inner AdamW stepping the shard, the new parameters allgathered back, the
+  124 buckets fused into chunks under the fusion threshold, each leg
+  negotiated by the native core and run by NCCL): losses
+  held to [native]'s (1e-6 relative), final parameters to the control
+  run's; then 3 steps each with ``Compression.bf16`` and ``int8`` legs
+  (step 1 within 1e-5 of the uncompressed run; int8's alltoall staged
+  through pinned host memory). It prints the bucket count, legs and
+  responses per step, state bytes against the replicated AdamW state, peak
+  memory, each leg's ms, the staging's device ms, and the step beside the
+  control's and [native]'s.
 
 For each path it times 10 more steps on the host (enqueue time, step time,
 calls that made the host wait for the device) and profiles one by kernel
@@ -634,7 +647,8 @@ def model_check(hvd, models, torch):
 def transformer_setup(hvd, models, **opt_kw):
     """The full-width TransformerLM from seed 0, its parameters broadcast,
     AdamW wrapped by DistributedOptimizer (``opt_kw``: its options), the
-    train step and one batch."""
+    train step (its ``optimizer`` attribute: the DistributedOptimizer) and
+    one batch."""
     cfg = models.TransformerConfig(
         vocab_size=30522, hidden=1024, layers=24, heads=16, max_len=512,
         causal=True, use_rope=True, attention_impl="flash")
@@ -651,6 +665,7 @@ def transformer_setup(hvd, models, **opt_kw):
             logits.reshape(-1, logits.shape[-1]), y.reshape(-1))
 
     step = hvd.make_train_step(loss_fn, opt)
+    step.optimizer = opt
     x = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_len),
                       device="cuda", generator=gen)
     y = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_len),
@@ -2251,6 +2266,296 @@ def compress_child(out_path):
         json.dump(res, f)
 
 
+# [zero]: ZeRO-1 (HVDTPU_ZERO, horovod_tpu_torch/ops/zero.py) in a one-rank
+# launcher job: the gradients reduce-scatter into the rank's shard, the
+# inner AdamW steps the shard, and the new parameters allgather back, every
+# leg a named collective the native core negotiates and NCCL executes.
+ZERO_STEPS = 5
+ZERO_CODEC_STEPS = 3
+ZERO_LOSS_RTOL = 1e-6     # [zero]'s losses against [native]'s
+ZERO_PARAM_RTOL = 1e-6    # final parameters against the replicated run's,
+#                           of the largest |parameter|
+ZERO_CODEC_RTOL = 1e-5    # a compressed run's step 1 against [zero]'s
+ZERO_STATE_RTOL = 1e-2    # state bytes at n = 1 against the replicated
+
+
+def zero_verdict(res, native_losses):
+    """The checks of ``zero_child``'s results against [native]'s
+    TransformerLM losses: the failures, none when every check holds."""
+    bad = []
+    z, rep = res["zero"], res["replicated"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(z["losses"],
+                                                  native_losses))
+    if len(z["losses"]) != ZERO_STEPS or rel > ZERO_LOSS_RTOL:
+        bad.append(f"losses {z['losses']} differ from [native]'s "
+                   f"{native_losses} (relative {rel:.2e})")
+    if not z["param_max_abs"] <= ZERO_PARAM_RTOL * z["param_max"]:
+        bad.append(f"final parameters differ from the replicated run's by "
+                   f"{z['param_max_abs']:.3e}")
+    if abs(z["state_bytes"] - rep["state_bytes"]) > \
+            ZERO_STATE_RTOL * rep["state_bytes"]:
+        bad.append(f"state bytes {z['state_bytes']} at n = 1 against the "
+                   f"replicated {rep['state_bytes']}")
+    if z["host_waits"] or rep["host_waits"]:
+        bad.append(f"{z['host_waits'] + rep['host_waits']} calls made the "
+                   "host wait for the device")
+    if not z["chunks"] or min(z["responses"]) < 2 * z["chunks"]:
+        bad.append(f"{z['chunks']} chunks but {z['responses']} responses "
+                   "per step: the legs did not run through the core")
+    for label, run in res.items():
+        want = [dict.fromkeys(("fwd", "bwd_dkv", "bwd_dq"), 24)] * len(
+            run["per_step_launches"])
+        if not run["per_step_launches"] or run["per_step_launches"] != want:
+            bad.append(f"{label}: expected 24 launches of each no-dropout "
+                       f"kernel per step: {run['per_step_launches']}")
+        if not all(math.isfinite(v) for v in run["losses"]) or \
+                not run["losses"][-1] < run["losses"][0]:
+            bad.append(f"{label}: losses did not descend: {run['losses']}")
+    for codec in ("bf16", "int8"):
+        got = res[codec]["losses"]
+        rel = abs(got[0] - z["losses"][0]) / abs(z["losses"][0])
+        if len(got) != ZERO_CODEC_STEPS or rel > ZERO_CODEC_RTOL:
+            bad.append(f"{codec}: step 1 loss {got[0]} differs from the "
+                       f"uncompressed {z['losses'][0]} ({rel:.2e})")
+    return bad
+
+
+def zero_phase(native_res):
+    """Drive ZeRO-1 on the card: a child process runs as rank 0 of a
+    one-rank launcher job (``--zero-child``), a replicated control run, then
+    the TransformerLM under ``HVDTPU_ZERO=1``, then with ``Compression.bf16``
+    and ``int8`` legs. Its numbers are held here to [native]'s losses and to
+    the control run. Returns the flash kernels' launches of its runs."""
+    import socket
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="hvd-zero-") as tmp:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            master = sock.getsockname()[1]
+        env = dict(os.environ, HVDTPU_RANK="0", HVDTPU_SIZE="1",
+                   HVDTPU_LOCAL_RANK="0", HVDTPU_LOCAL_SIZE="1",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(master))
+        out = os.path.join(tmp, "zero.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--zero-child",
+             out], env=env, timeout=900)
+        if proc.returncode != 0:
+            fail(f"[zero] the one-rank launcher job exited "
+                 f"{proc.returncode}")
+        with open(out) as f:
+            res = json.load(f)
+    ref = native_res["transformer_losses"]
+    bare = native_res["bare"]["transformer_host_ms"]
+    z, rep = res["zero"], res["replicated"]
+    gib = 2 ** 30
+    log(f"[zero] losses {z['losses']} against [native]'s {ref}: max "
+        f"relative difference "
+        f"{max(abs(a - b) / abs(b) for a, b in zip(z['losses'], ref)):.2e} "
+        f"(limit {ZERO_LOSS_RTOL:.0e}); final parameters against the "
+        f"replicated run's: max |difference| {z['param_max_abs']:.3e} "
+        f"(limit {ZERO_PARAM_RTOL:.0e} of max |p| {z['param_max']:.3g})")
+    log(f"[zero] {z['buckets']} buckets (largest {z['largest_bucket'] / 2 ** 20:.1f} "
+        f"MiB, HVDTPU_ZERO_BUCKET_BYTES default 16 MiB); per step: "
+        f"{z['submissions']} grouped submissions (reduce-scatter, "
+        f"allgather, loss) of {z['chunks']} chunks each (zero.rs.<c>, "
+        f"zero.ag.<c>: the buckets fused under the {z['fusion_mib']:.0f} "
+        f"MiB fusion threshold), responses {z['responses']} "
+        f"({_median(z['response_bytes']) / gib:.2f} GiB), native cycles "
+        f"{z['cycles']}, cycle thread busy ms {_median(z['busy_ms']):.1f}; "
+        f"replicated per step: responses {rep['responses']}, cycle thread "
+        f"busy ms {_median(rep['busy_ms']):.1f}")
+    log(f"[zero] state bytes {z['state_bytes'] / gib:.3f} GiB against the "
+        f"replicated AdamW state's {rep['state_bytes'] / gib:.3f} GiB (n = "
+        f"1: the whole vector); peak memory allocated "
+        f"{z['peak'] / gib:.2f} GiB against {rep['peak'] / gib:.2f} "
+        f"({(z['peak'] - rep['peak']) / gib:+.2f} GiB; the shards "
+        f"{z['shard_bytes'] / gib:.2f} GiB)")
+    log(f"[zero] step ms (median of steps 2..{ZERO_STEPS}) {z['step_ms']:.1f}"
+        f" against the replicated run's {rep['step_ms']:.1f}; [host] median "
+        f"{z['host_ms']:.1f} against the replicated {rep['host_ms']:.1f} "
+        f"({z['host_ms'] - rep['host_ms']:+.1f} ms) and [native]'s without "
+        f"timelines {bare:.1f} ({z['host_ms'] - bare:+.1f} ms); device time "
+        f"of one step {z['device_ms']:.2f} ms against {rep['device_ms']:.2f};"
+        f" calls that made the host wait: {z['host_waits']} (replicated "
+        f"{rep['host_waits']})")
+    for codec in ("bf16", "int8"):
+        r = res[codec]
+        log(f"[zero] {codec} legs: losses {r['losses']} (step 1 relative "
+            f"difference to [zero]'s "
+            f"{abs(r['losses'][0] - z['losses'][0]) / abs(z['losses'][0]):.2e}"
+            f", limit {ZERO_CODEC_RTOL:.0e}); step ms (median of steps "
+            f"2..{ZERO_CODEC_STEPS}) {r['step_ms']:.1f}; reduce-scatter leg "
+            f"{r['rs_ms']:.2f} ms, allgather leg {r['ag_ms']:.2f} ms (one "
+            f"step, synchronized around each); device time of one step "
+            f"{r['device_ms']:.2f} ms; host waits {r['host_waits']}"
+            + (f"; staged alltoall: {r['staged_bytes'] / gib:.3f} GiB each "
+               f"way through pinned host memory, device to host "
+               f"{r['d2h_ms']:.2f} ms, host to device {r['h2d_ms']:.2f} ms "
+               f"of device time" if codec == "int8" else ""))
+    bad = zero_verdict(res, ref)
+    if bad:
+        fail("[zero] " + "; ".join(bad))
+    launches = {}
+    for run in res.values():
+        for n, c in run["launches"].items():
+            launches[n] = launches.get(n, 0) + c
+    return launches
+
+
+def zero_child(out_path):
+    """The child of ``zero_phase`` (``chip_smoke.py --zero-child OUT``): rank
+    0 of a one-rank launcher job on the NCCL-delegated plane. Writes its
+    results to OUT."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from horovod_tpu_torch import native as hnative
+    os.environ["HVDTPU_PEERS"] = \
+        f"127.0.0.1:{hnative.reserve_listen_port()}"
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import basics, models
+    from horovod_tpu_torch.models import transformer as tmod
+    from horovod_tpu_torch.ops import flash_attention as fa
+    hvd.init()
+    rt = basics.runtime()
+    backend, coord = rt.backend, rt.coordinator
+    if rt.mode != basics.MODE_SPMD or backend.name != "nccl-global":
+        fail(f"[zero] expected a launcher job on the NCCL-delegated plane, "
+             f"got {rt.mode}, {backend.name}")
+    log(f"[zero] rank 0 of 1, backend {backend.name}")
+    res, kept = {}, {}
+
+    def counters():
+        return (coord.submitted, backend.responses, backend.response_bytes,
+                backend.core.cycles(), coord.busy_s)
+
+    def host_waits(fn):
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return out, [f"{w.filename}:{w.lineno}" for w in got
+                     if "called a synchronizing" in str(w.message)]
+
+    def run(label, steps, zero, host=False, **opt_kw):
+        if zero:
+            os.environ["HVDTPU_ZERO"] = "1"
+        else:
+            os.environ.pop("HVDTPU_ZERO", None)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, model, step, x, y = transformer_setup(hvd, models, **opt_kw)
+        opt = step.optimizer
+        if opt.zero != zero:
+            fail(f"[zero] {label}: HVDTPU_ZERO did not select the mode")
+        tmod._rope_tables(cfg.max_len, cfg.hidden // cfg.heads, hvd.device())
+        fa.reset_launches()
+        r = {"losses": [], "per_step_launches": [], "responses": [],
+             "response_bytes": [], "cycles": [], "busy_ms": []}
+        times, waits = [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            prev, c0 = dict(fa.LAUNCHES), counters()
+            t0 = time.perf_counter()
+            loss, w = host_waits(lambda: step(model, (x, y)))
+            loss = loss.item()
+            times.append((time.perf_counter() - t0) * 1e3)
+            d = [b - a for a, b in zip(c0, counters())]
+            waits += w
+            r["losses"].append(loss)
+            r["per_step_launches"].append(
+                {n: fa.LAUNCHES[n] - prev[n]
+                 for n in ("fwd", "bwd_dkv", "bwd_dq")})
+            r["submissions"] = d[0]
+            r["responses"].append(d[1])
+            r["response_bytes"].append(d[2])
+            r["cycles"].append(d[3])
+            r["busy_ms"].append(d[4] * 1e3)
+            log(f"  [zero] {label} step {i + 1}: loss {loss:.6f}  "
+                f"{times[-1]:.1f} ms  launches {r['per_step_launches'][-1]}"
+                f"  submissions {d[0]}, responses {d[1]} "
+                f"({d[2] / 2 ** 20:.1f} MiB), native cycles {d[3]}, cycle "
+                f"thread busy {d[4] * 1e3:.1f} ms")
+        for site in sorted(set(waits)):
+            log(f"  [zero] {label}: x{waits.count(site)} host wait at "
+                f"{site}")
+        r.update(step_ms=_median(times[1:]), host_waits=len(waits),
+                 peak=torch.cuda.max_memory_allocated(),
+                 launches={n: fa.LAUNCHES[n]
+                           for n in ("fwd", "bwd_dkv", "bwd_dq")})
+        zrt = opt._zero_rt
+        if zero:
+            r.update(state_bytes=zrt.state_bytes(),
+                     buckets=len(zrt.plan.buckets), chunks=len(zrt.chunks),
+                     fusion_mib=coord.fusion_threshold / 2 ** 20,
+                     largest_bucket=max(b.nbytes for b in zrt.plan.buckets),
+                     shard_bytes=sum(s.numel() * s.element_size()
+                                     for s in zrt.shards))
+        else:
+            r["state_bytes"] = sum(
+                v.numel() * v.element_size()
+                for st in opt.inner.state.values() for v in st.values()
+                if torch.is_tensor(v))
+        return r, model, step, x, y
+
+    def finish(r, model, step, x, y):
+        kernels = device_kernels(lambda: step(model, (x, y)).item())
+        r["device_ms"] = sum(ms for _, ms, _ in kernels)
+        return kernels
+
+    # -- the replicated control, then ZeRO ------------------------------
+    for label, zero in (("replicated", False), ("zero", True)):
+        r, model, step, x, y = run(label, ZERO_STEPS, zero)
+        flat = torch.cat([p.detach().reshape(-1)
+                          for p in model.parameters()]).cpu()
+        if zero:
+            want = kept.pop("params")
+            r["param_max_abs"] = float((flat - want).abs().max())
+            r["param_max"] = float(want.abs().max())
+        else:
+            kept["params"] = flat
+        del flat
+        r["host_ms"], _ = host_phase(lambda: step(model, (x, y)),
+                                     label=f"[zero] {label} step")
+        finish(r, model, step, x, y)
+        res[label] = r
+        del model, step
+
+    # -- compressed legs -------------------------------------------------
+    for codec in ("bf16", "int8"):
+        r, model, step, x, y = run(
+            codec, ZERO_CODEC_STEPS, True,
+            compression=getattr(hvd.Compression, codec))
+        kernels = finish(r, model, step, x, y)
+        r.update(d2h_ms=sum(ms for k, ms, _ in kernels
+                            if k.startswith("Memcpy DtoH")),
+                 h2d_ms=sum(ms for k, ms, _ in kernels
+                            if k.startswith("Memcpy HtoD")))
+        zrt = step.optimizer._zero_rt
+        r["staged_bytes"] = sum(f.numel() * (1 + 4 / zrt.block)
+                                for f in zrt._flat) if zrt.block else 0
+        # One more step with each leg timed on its own, the device
+        # synchronized around it.
+        legs = {}
+        for name in ("_reduce_scatter", "_gather"):
+            def timed(*a, _f=getattr(zrt, name), _n=name):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _f(*a)
+                torch.cuda.synchronize()
+                legs[_n] = (time.perf_counter() - t0) * 1e3
+                return out
+            setattr(zrt, name, timed)
+        step(model, (x, y)).item()
+        r.update(rs_ms=legs["_reduce_scatter"], ag_ms=legs["_gather"])
+        res[codec] = r
+        del model, step, zrt
+    hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -2316,6 +2621,9 @@ def main():
     compress_launches = compress_phase(native_res, resnet_losses)
     log("[launches] [compress] " + ", ".join(
         f"{n}={c}" for n, c in compress_launches.items()))
+    zero_launches = zero_phase(native_res)
+    log("[launches] [zero] " + ", ".join(
+        f"{n}={c}" for n, c in zero_launches.items()))
     log("[launches] " + ", ".join(f"{n}={c}" for n, c in launches.items()))
     if set(launches) != set(KERNELS) or not all(launches.values()):
         fail(f"a kernel was not launched on its path: {launches}")
@@ -2347,5 +2655,7 @@ if __name__ == "__main__":
         elastic_child(sys.argv[2])
     elif sys.argv[1:2] == ["--compress-child"]:
         compress_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--zero-child"]:
+        zero_child(sys.argv[2])
     else:
         main()

@@ -34,5 +34,6 @@ from .ops.sparse import (SparseGradient, sparse_allreduce,
                          sparse_allreduce_async)
 from .process_sets import (ProcessSet, add_process_set, global_process_set,
                            process_set_by_id, remove_process_set)
-from .train import DistributedOptimizer, make_train_step
+from .train import (DistributedOptimizer, make_train_step,
+                    make_zero_train_step)
 from .version import __version__

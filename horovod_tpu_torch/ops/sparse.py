@@ -1,5 +1,4 @@
-"""Sparse/embedding gradient plane (port of ``horovod_tpu/ops/sparse.py``
-without its ZeRO part).
+"""Sparse/embedding gradient plane (port of ``horovod_tpu/ops/sparse.py``).
 
 Embedding gradients touch a small fraction of a table's rows per step.
 Reducing them dense pays the whole table on the wire; gathering the
@@ -501,3 +500,60 @@ def reduce_gathered(meta, gathered, world, op):
         vals = gathered[1].reshape((-1,) + tail)
     return scatter_add_dense(idx, vals, meta.dense_shape, world, op,
                              dtype=meta.values_dtype)
+
+
+# ==========================================================================
+# ZeRO composition: embedding optimizer state sharded by row range
+# ==========================================================================
+
+def plan_row_shards(nrows, world):
+    """Contiguous near-even row ranges, one per rank: ``[(lo, hi), ...]``
+    (earlier ranks take the remainder, the reducescatter convention).
+    Deterministic in (nrows, world)."""
+    base, rem = divmod(int(nrows), int(world))
+    bounds, start = [], 0
+    for r in range(world):
+        end = start + base + (1 if r < rem else 0)
+        bounds.append((start, end))
+        start = end
+    return bounds
+
+
+def rowsharded_update(update, gathered, param_shard, state_shard, lo, hi):
+    """Apply the gathered sparse gradient to THIS rank's row range
+    ``[lo, hi)`` of an embedding table whose optimizer state lives
+    row-sharded (1/n per rank). ``gathered`` is the allgathered
+    :class:`SparseGradient` of every rank; rows outside the range belong to
+    other shards and are dropped here, and only the touched local rows
+    step (untouched rows keep their state, like torch's SparseAdam).
+
+    ``update(grad_rows, state_rows, param_rows) -> (updates,
+    new_state_rows)`` is the elementwise optimizer (optax's ``update``
+    contract, as a function: torch has no optax); ``state_shard`` maps
+    names to tensors whose first dim is the shard's rows, or to scalars,
+    which it receives as they are. Returns ``(new_param_shard,
+    new_state_shard)``; the inputs are left alone."""
+    # Cross-rank dedup: a row touched by several ranks appears once per
+    # toucher in the gathered set; the write-back below would keep only
+    # the last duplicate's update without the segment sum.
+    gathered = gathered.deduplicate()
+    idx = gathered.indices.to(param_shard.device)
+    mask = (idx >= lo) & (idx < hi)
+    local_idx = idx[mask] - lo
+    local_vals = gathered.values.to(param_shard.device)[mask]
+    if int(local_idx.shape[0]) == 0:
+        return param_shard, state_shard
+    rows_of = param_shard.shape[0]
+
+    def is_rows(v):
+        return torch.is_tensor(v) and v.dim() and v.shape[0] == rows_of
+
+    rows = param_shard[local_idx]
+    row_state = {k: v[local_idx] if is_rows(v) else v
+                 for k, v in state_shard.items()}
+    updates, new_row_state = update(local_vals, row_state, rows)
+    new_param = param_shard.index_put((local_idx,), rows + updates)
+    new_state = {k: (v.index_put((local_idx,), new_row_state[k])
+                     if is_rows(v) else new_row_state[k])
+                 for k, v in state_shard.items()}
+    return new_param, new_state

@@ -8,7 +8,9 @@ re-broadcasts from the new rank 0 after a reset. The snapshot is a copy of
 every tensor on the device it lives on. ``sync`` broadcasts the model's
 tensors with ``broadcast_parameters`` and the optimizer's with
 ``broadcast_optimizer_state``, in place, as the reference's state handlers
-do; only plain values are pickled.
+do; only plain values are pickled. A ``train.DistributedOptimizer`` in ZeRO
+mode holds one shard per rank: ``sync`` broadcasts none of it, and raises
+once the membership version moved under its state.
 """
 
 import copy
@@ -86,6 +88,11 @@ class TorchState(State):
         for value in self._handlers.values():
             if isinstance(value, torch.optim.Optimizer):
                 broadcast_optimizer_state(value, root_rank=0)
+            elif getattr(value, "zero", False):
+                _check_zero_unmoved(value)
+            elif hasattr(value, "_zero_rt"):
+                # train.DistributedOptimizer, replicated: its wrapped one.
+                broadcast_optimizer_state(value.inner, root_rank=0)
             else:
                 broadcast_parameters(value.state_dict(), root_rank=0)
         synced = broadcast_object(self._scalar_state(), root_rank=0,
@@ -105,6 +112,17 @@ class TorchState(State):
             self._sampler.processed_indices = merged
             self._sampler.reset()
         self.save()
+
+
+def _check_zero_unmoved(dist_opt):
+    """A ZeRO optimizer's state is sharded: each rank holds its own shard,
+    so rank 0's is not broadcast. Once the membership version moved under
+    built state, the shards no longer fit the cohort, and the in-place
+    reshard is not ported: raise, as its next step would."""
+    from ..ops import zero as zero_ops
+    rt = dist_opt._zero_rt
+    if rt.inner is not None and rt.stale_version():
+        raise RuntimeError(zero_ops.RESHARD_ERROR)
 
 
 class ElasticSampler:

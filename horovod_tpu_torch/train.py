@@ -42,6 +42,14 @@ class DistributedOptimizer:
         A wire codec with Adasum raises.
       process_set: the ranks that reduce together (default all).
 
+      zero: the ZeRO-1 sharded weight update (``ops/zero.py``): the
+        gradients reduce-scatter instead of allreduce, each rank steps
+        only its 1/n slice of a sharded optimizer state, and the updated
+        slices allgather back into the parameters. None reads
+        ``HVDTPU_ZERO``. Average/Sum only; Adasum, a process set other than
+        the global one and ``backward_passes_per_step > 1`` raise here.
+        ``state_dict()`` is then this rank's shard of the state.
+
     In a launcher job the dense gradients are reduced after backward by one
     grouped allreduce named ``grad`` through the coordinator, whose native
     core fuses them into buckets under ``HVDTPU_FUSION_THRESHOLD``; sparse
@@ -55,7 +63,7 @@ class DistributedOptimizer:
     def __init__(self, optimizer, op=reduce_ops.Average,
                  backward_passes_per_step=1, prescale_factor=None,
                  postscale_factor=None, compression=None,
-                 process_set=global_process_set):
+                 process_set=global_process_set, zero=None):
         if op not in (reduce_ops.Average, reduce_ops.Sum,
                       reduce_ops.Adasum):
             raise ValueError(
@@ -74,10 +82,6 @@ class DistributedOptimizer:
                 f"compression={self._wire_codec!r} supports Average/Sum "
                 "gradient reductions only (Adasum's scale-invariant "
                 "combination needs exact per-rank gradients)")
-        if envparse.get_bool(envparse.ZERO):
-            raise NotImplementedError(
-                "HVDTPU_ZERO: the ZeRO-1 sharded update is not ported yet "
-                "(ROADMAP queue A, item 10)")
         self.process_set = process_set
         self.inner = optimizer
         self.op = op
@@ -88,6 +92,85 @@ class DistributedOptimizer:
         self.prescale = prescale_factor
         self.postscale = postscale_factor
         self._passes = 0
+        # ZeRO-1 (HVDTPU_ZERO; ops/zero.py). The incompatible combinations
+        # are refused here, as the JAX package refuses them at construction.
+        self.zero = envparse.get_bool(envparse.ZERO) if zero is None \
+            else bool(zero)
+        self._zero_rt = None
+        if self.zero:
+            if op == reduce_ops.Adasum:
+                raise ValueError(
+                    "zero=True (HVDTPU_ZERO) is incompatible with "
+                    "op=Adasum: Adasum's per-tensor scale-invariant "
+                    "combination does not reduce-scatter")
+            if process_set is not global_process_set:
+                raise ValueError(
+                    "zero=True (HVDTPU_ZERO) requires the global "
+                    "process set: the shard plan partitions state over "
+                    "the whole replica axis, and a sub-cohort would "
+                    "compute a different (wrong) plan")
+            if self.k != 1:
+                raise ValueError(
+                    "zero=True (HVDTPU_ZERO) does not compose with "
+                    "backward_passes_per_step > 1 (accumulate micro-"
+                    "batch gradients before the step instead)")
+            from .ops import zero as zero_ops
+            codec, block = self._zero_codec()
+            self._zero_rt = zero_ops.ZeroRuntime(
+                optimizer, op=op, bucket_bytes=envparse.get_int(
+                    envparse.ZERO_BUCKET_BYTES,
+                    zero_ops.DEFAULT_ZERO_BUCKET_BYTES),
+                codec=codec, block=block, prescale=prescale_factor,
+                postscale=postscale_factor)
+
+    # -- ZeRO-1 mode -------------------------------------------------------
+    def _zero_codec(self):
+        """The codec the ZeRO legs carry: the wire codec with the
+        compression plane's block, or the cast compressors by their codec
+        names (the legs ride the narrow dtype)."""
+        if self._wire_codec is not None:
+            from .compression import codecs
+            return self._wire_codec, envparse.get_int(
+                envparse.COMPRESSION_BLOCK, codecs.DEFAULT_BLOCK)
+        if self.compression is Compression.fp16:
+            return "fp16", 0
+        if self.compression is Compression.bf16:
+            return "bf16", 0
+        return None, 0
+
+    def init(self):
+        """Build the sharded state now (ZeRO mode; the first ``step`` does
+        otherwise). Nothing to do in the replicated mode."""
+        if self.zero:
+            self._zero_rt.init_state()
+
+    def update(self):
+        """ZeRO mode's ``update``: reduce-scatter, step this rank's shard
+        and return the gathered updates, one tensor per parameter of the
+        wrapped optimizer, without applying them (``p.add_(u)`` does; the
+        train step applies them inside the shard instead)."""
+        if not self.zero:
+            raise RuntimeError(
+                "update() is the ZeRO mode's; call step() otherwise")
+        if self._zero_rt.inner is None:
+            raise RuntimeError(
+                "ZeRO mode: call init() (or run through make_train_step) "
+                "before update — the sharded state and shard plan are "
+                "built there")
+        return self._zero_rt.update()
+
+    def state_dict(self):
+        """This rank's shard of the state in ZeRO mode, else the wrapped
+        optimizer's state."""
+        if self.zero:
+            return self._zero_rt.state_dict()
+        return self.inner.state_dict()
+
+    def load_state_dict(self, state):
+        if self.zero:
+            self._zero_rt.load_state_dict(state)
+        else:
+            self.inner.load_state_dict(state)
 
     def zero_grad(self, set_to_none=True):
         self.inner.zero_grad(set_to_none=set_to_none)
@@ -149,6 +232,9 @@ class DistributedOptimizer:
         self._passes += 1
         if self._passes % self.k:
             return False
+        if self.zero:
+            self._zero_rt.apply()
+            return True
         self.synchronize()
         self.inner.step()
         return True
@@ -166,6 +252,10 @@ def make_train_step(loss_fn, dist_opt, has_aux=False):
     or an optimizer wrapped by ``horovod_tpu_torch.torch.
     DistributedOptimizer`` (stepped every ``backward_passes_per_step``
     calls).
+
+    Under ``dist_opt``'s ZeRO mode (``zero=True`` or ``HVDTPU_ZERO=1``)
+    its ``step()`` is the sharded update (``ops/zero.py``): reduce-scatter,
+    a step of this rank's shard, allgather into the parameters.
 
     With ``has_aux=True`` the model carries state besides its parameters
     in floating-point buffers (BatchNorm running statistics, flax's
@@ -197,3 +287,49 @@ def make_train_step(loss_fn, dist_opt, has_aux=False):
                 grouped_allreduce_(aux, op=reduce_ops.Average, name="aux")
         return allreduce(loss.detach(), op=reduce_ops.Average, name="loss")
     return step
+
+
+def make_zero_train_step(loss_fn, dist_opt):
+    """The legacy explicit entry of the ZeRO-1 step (port of the JAX
+    package's ``make_zero_train_step``, kept for its ``(step, init_state)``
+    shape): one bucket per dtype, so that each moment is one flat sharded
+    vector per dtype, and plain averaged gradients only. New code sets
+    ``zero=True`` (or ``HVDTPU_ZERO=1``) and uses :func:`make_train_step`,
+    which also buckets the legs and composes with Sum, compression and the
+    scale factors.
+
+    Returns ``(step, init_state)``: ``step(model, batch) -> loss`` as
+    :func:`make_train_step`'s, and ``init_state()``, which builds the
+    sharded state and returns this rank's shard of it (a state_dict).
+    ``dist_opt`` itself is left as it is."""
+    import copy
+    from .ops import zero as zero_ops
+    if not isinstance(dist_opt, DistributedOptimizer):
+        raise TypeError("make_zero_train_step takes a "
+                        "train.DistributedOptimizer")
+    unsupported = []
+    if dist_opt.op != reduce_ops.Average:
+        unsupported.append(f"op={dist_opt.op!r}")
+    if dist_opt.k != 1:
+        unsupported.append(f"backward_passes_per_step={dist_opt.k}")
+    if dist_opt.compression is not None:
+        unsupported.append("compression")
+    if dist_opt.prescale is not None or dist_opt.postscale is not None:
+        unsupported.append("prescale/postscale")
+    if unsupported:
+        raise ValueError(
+            "make_zero_train_step supports plain averaged gradients "
+            "only; unsupported DistributedOptimizer settings: "
+            + ", ".join(unsupported)
+            + " (use make_train_step for these)")
+    zopt = copy.copy(dist_opt)
+    zopt.zero = True
+    zopt._passes = 0
+    zopt._zero_rt = zero_ops.ZeroRuntime(dist_opt.inner,
+                                         bucket_bytes=1 << 62)
+
+    def init_state():
+        zopt.init()
+        return zopt.state_dict()
+
+    return make_train_step(loss_fn, zopt), init_state

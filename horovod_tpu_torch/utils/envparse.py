@@ -89,10 +89,17 @@ def register(name, default, doc):
 
 LOG_LEVEL = register(
     "LOG_LEVEL", "warning", "trace/debug/info/warning/error")
+
+# -- ZeRO-1 sharded weight update (ops/zero.py) -------------------------------
 ZERO = register(
     "ZERO", "0",
-    "ZeRO-1 cross-replica sharded weight update (not ported yet: "
-    "DistributedOptimizer raises when it is on)")
+    "ZeRO-1 cross-replica sharded weight update: gradients "
+    "reduce-scatter per bucket, each replica steps 1/n of a sharded "
+    "optimizer state, updated shards allgather back (ops/zero.py)")
+ZERO_BUCKET_BYTES = register(
+    "ZERO_BUCKET_BYTES", "16 MiB",
+    "Payload bytes per ZeRO fusion bucket (reduce-scatter/allgather "
+    "legs); defaults to the overlap plane's bucket budget")
 
 # -- control plane (coordinator, native core) --------------------------------
 CYCLE_TIME = register(

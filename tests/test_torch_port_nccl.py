@@ -14,7 +14,14 @@ with the parameters of an uninterrupted run; each needs 2 GPUs. And the
 ranks: the catch-all int8 and fp8 quantized pipeline against
 ``quantized_allreduce_plain`` of the stacked inputs, Adasum (staged
 through pinned host memory) against the VHDD oracle, sparse gathers
-against the dense sum; needs 4 GPUs. Each skips elsewhere:
+against the dense sum; needs 4 GPUs. And the ZeRO-1 jobs of
+tests/test_torch_port_zero.py over NCCL at 2 and 4 ranks
+(tests/torch_port_zero_worker.py): the sharded update against the
+replicated one (bit-identical at 2 ranks, within 1e-6 at 4), state bytes
+1/n of the replicated, the codec legs' residuals, the version bump, a
+plan mismatch failing in the negotiation, and the full-width, full-depth
+TransformerLM's peak allocated memory per rank below the replicated
+run's; needs 4 GPUs. Each skips elsewhere:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_nccl.py
 """
@@ -160,3 +167,99 @@ def test_nccl_sparse_gathers_equal_the_dense_sum(reduce_jobs, size):
                          ("spq_rows", 1)):
             np.testing.assert_allclose(got[r][key], dense / div, rtol=1e-6,
                                        atol=1e-6)
+
+
+ZERO_SIZES = (2, 4)
+
+
+@pytest.fixture(scope="module")
+def zero_jobs(tmp_path_factory):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices (a multi-GPU machine)")
+    import numpy as np
+    import torch_port_launch
+    from horovod_tpu_torch import _build
+    from test_torch_port_zero import _zero_job
+    # The workers of the memory jobs load the flash kernels: build them
+    # once, before they start.
+    _build.build(["flash_attention"])
+    torch_port_launch.build_port_core()
+    done = {}
+    for mode, sizes in (("zero", ZERO_SIZES), ("memory", ZERO_SIZES),
+                        ("mismatch", (2,))):
+        for size in sizes:
+            out = tmp_path_factory.mktemp(f"nccl-zero-{mode}-{size}")
+            procs = _zero_job(mode, "gloo", size, out,
+                              {"PORT_TEST_DEVICE": "cuda"})
+            job = _read(out, size, _finish(procs))
+            done[mode, size] = _ok(job)
+            if mode == "zero":
+                done["npz", size] = [dict(np.load(out / f"r{r}.npz"))
+                                     for r in range(size)]
+    # The measured numbers, for a run with -s.
+    for size in ZERO_SIZES:
+        diffs = [d for r in range(size)
+                 for d in done["zero", size][r]["diffs"].values()]
+        mem = done["memory", size]
+        print(f"[zero card] n={size}: ZeRO against replicated: all equal "
+              f"{all(d['equal'] for d in diffs)}, max |difference| "
+              f"{max(d['max_abs'] for d in diffs):.3e}; per rank peak "
+              f"allocated GiB replicated/ZeRO "
+              + ", ".join(f"{m['replicated.peak'] / 2 ** 30:.2f}/"
+                          f"{m['zero.peak'] / 2 ** 30:.2f}"
+                          for m in mem.values())
+              + "; state bytes ZeRO/replicated "
+              + ", ".join(f"{m['zero.state_bytes'] / m['replicated.state_bytes']:.4f}"
+                          for m in mem.values()), flush=True)
+    return done
+
+
+@pytest.mark.parametrize("size", ZERO_SIZES)
+def test_nccl_zero_equals_the_replicated_update(zero_jobs, size):
+    for r in range(size):
+        res = zero_jobs["zero", size][r]
+        for key, d in res["diffs"].items():
+            if size == 2:
+                assert d["equal"], (r, key, d)
+            else:
+                assert d["close"] and d["loss_rel"] <= 1e-6, \
+                    (r, key, d)
+        for name in ("sgd", "adam"):
+            zb = res[f"{name}.state_bytes"]
+            rb = res[f"{name}.replicated_state_bytes"]
+            assert rb / size * 0.9 < zb < rb / size * 1.1, (zb, rb)
+        for codec in ("int8", "fp8"):
+            assert res[f"{codec}.error_feedback"] and \
+                res[f"{codec}.residuals"] == 1
+        for what in ("step", "sync"):
+            assert "cannot reshard optimizer state in place" in \
+                res[f"bump.{what}"]
+
+
+@pytest.mark.parametrize("size", ZERO_SIZES)
+def test_nccl_zero_codec_legs_stay_near_the_exact_update(zero_jobs, size):
+    import numpy as np
+    for r in range(size):
+        got = zero_jobs["npz", size][r]
+        for codec, tol in (("int8", 2e-2), ("fp8", 5e-2), ("fp16", 1e-3)):
+            for i in range(3):
+                np.testing.assert_allclose(got[f"{codec}.p{i}"],
+                                           got[f"none.p{i}"], atol=tol,
+                                           err_msg=f"{codec} leaf {i}")
+
+
+@pytest.mark.parametrize("size", ZERO_SIZES)
+def test_nccl_zero_lowers_peak_memory_per_rank(zero_jobs, size):
+    for r in range(size):
+        res = zero_jobs["memory", size][r]
+        rep, zero = res["replicated.state_bytes"], res["zero.state_bytes"]
+        assert rep / size * 0.99 < zero < rep / size * 1.01, (zero, rep)
+        assert res["zero.peak"] < res["replicated.peak"], res
+        for a, b in zip(res["zero.losses"], res["replicated.losses"]):
+            assert abs(a - b) <= 1e-6 * abs(b), res
+
+
+def test_nccl_zero_plan_mismatch_fails_in_negotiation(zero_jobs):
+    for r in range(2):
+        err = zero_jobs["mismatch", 2][r]["error"]
+        assert "zero.rs." in err and "mismatched shapes" in err, err

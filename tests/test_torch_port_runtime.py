@@ -168,7 +168,7 @@ def test_knobs_and_reduce_ops_match_the_jax_package():
     # The port declares the knobs it reads, each under the JAX package's
     # name and default.
     assert set(tenv.KNOBS) == {
-        "LOG_LEVEL", "ZERO", "BRIDGE_FLASH", "FLASH_DROPOUT", "CYCLE_TIME",
+        "LOG_LEVEL", "ZERO", "ZERO_BUCKET_BYTES", "BRIDGE_FLASH", "FLASH_DROPOUT", "CYCLE_TIME",
         "FUSION_THRESHOLD", "CACHE_CAPACITY", "HIERARCHICAL_THRESHOLD",
         "CPU_OPERATIONS", "TIMELINE", "TIMELINE_MARK_CYCLES",
         "STALL_CHECK_DISABLE", "STALL_CHECK_TIME", "STALL_CHECK_TIME_SECONDS",

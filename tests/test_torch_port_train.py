@@ -190,11 +190,18 @@ def test_local_accumulation_equals_one_step_on_the_whole_batch(port):
     ({}, {"HVDTPU_ZERO": "1"}),
 ])
 def test_unported_optimizer_modes_raise(kwargs, env, monkeypatch):
+    # HVDTPU_ZERO raised NotImplementedError until ZeRO-1 was ported; the
+    # knob now selects the sharded update (tests/test_torch_port_zero.py),
+    # as zero=True does, and zero=False overrides it.
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     p = torch.nn.Parameter(torch.zeros(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.DistributedOptimizer(torch.optim.SGD([p], lr=0.1), **kwargs)
+    opt = train.DistributedOptimizer(torch.optim.SGD([p], lr=0.1), **kwargs)
+    assert opt.zero and opt._zero_rt is not None
+    assert not train.DistributedOptimizer(torch.optim.SGD([p], lr=0.1),
+                                          zero=False).zero
+    monkeypatch.delenv("HVDTPU_ZERO")
+    assert not train.DistributedOptimizer(torch.optim.SGD([p], lr=0.1)).zero
 
 
 @pytest.mark.parametrize("kwargs,error", [
