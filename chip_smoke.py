@@ -78,6 +78,16 @@ paths at full width:
   memory, each leg's ms, the staging's device ms, and the step beside the
   control's and [native]'s.
 
+- ``[ckpt]``: a crash-safe checkpoint of ZeRO-1 state in two one-rank
+  launcher jobs (``--ckpt-child``) with the stuck-collective watchdog
+  armed (``HVDTPU_COLLECTIVE_TIMEOUT``): the TransformerLM under ZeRO-1
+  AdamW 5 steps as a control, then 3 steps and
+  ``checkpoint.save_step`` (``HVDTPU_CHECKPOINT_KEEP=1``) of the model and
+  the world-size-independent ZeRO state; a new job restores the newest
+  step and runs steps 4-5, held to the control's losses (1e-6 relative)
+  and final parameters (equal). It prints the file's bytes, the save and
+  restore seconds and GB/s, and the step beside [zero]'s.
+
 For each path it times 10 more steps on the host (enqueue time, step time,
 calls that made the host wait for the device) and profiles one by kernel
 family. Prints one JSON line of per-kernel numbers, the card's name and
@@ -2399,7 +2409,7 @@ def zero_phase(native_res):
     for run in res.values():
         for n, c in run["launches"].items():
             launches[n] = launches.get(n, 0) + c
-    return launches
+    return launches, z
 
 
 def zero_child(out_path):
@@ -2556,6 +2566,233 @@ def zero_child(out_path):
         json.dump(res, f)
 
 
+CKPT_STEPS = 5             # the control run; the checkpoint after step 3
+CKPT_AT = 3
+CKPT_LOSS_RTOL = 1e-6      # restored steps 4-5 against the control's
+CKPT_TIMEOUT_S = "60"      # HVDTPU_COLLECTIVE_TIMEOUT: the watchdog armed
+
+
+def _one_rank_env(**extra):
+    """The environment of a one-rank launcher job on a fresh port."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        master = sock.getsockname()[1]
+    return dict(os.environ, HVDTPU_RANK="0", HVDTPU_SIZE="1",
+                HVDTPU_LOCAL_RANK="0", HVDTPU_LOCAL_SIZE="1",
+                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(master), **extra)
+
+
+def ckpt_verdict(res):
+    """The checks of ``[ckpt]``'s two jobs: the failures, none when every
+    check holds."""
+    bad = []
+    ctl, save, rest = res["control"], res["save"], res["restore"]
+    want = ctl["losses"][CKPT_AT:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(rest["losses"], want)) \
+        if len(rest["losses"]) == len(want) else float("inf")
+    if rel > CKPT_LOSS_RTOL:
+        bad.append(f"restored steps {rest['losses']} against the control's "
+                   f"{want} (relative {rel:.2e})")
+    if save["losses"] != ctl["losses"][:CKPT_AT]:
+        bad.append(f"the saving run's steps {save['losses']} are not the "
+                   f"control's {ctl['losses'][:CKPT_AT]}")
+    if rest["param_max_abs"] != 0.0:
+        bad.append(f"final parameters differ from the control's by "
+                   f"{rest['param_max_abs']:.3e}")
+    if not rest["verified"]:
+        bad.append(f"verify_checkpoint: {rest['verify_reason']}")
+    if rest["restored_step"] != CKPT_AT or rest["kept"] != [CKPT_AT]:
+        bad.append(f"restored step {rest['restored_step']}, kept "
+                   f"{rest['kept']} (HVDTPU_CHECKPOINT_KEEP=1)")
+    for label, run in res.items():
+        want_l = [dict.fromkeys(("fwd", "bwd_dkv", "bwd_dq"), 24)] * len(
+            run["per_step_launches"])
+        if not run["per_step_launches"] or run["per_step_launches"] != \
+                want_l:
+            bad.append(f"{label}: expected 24 launches of each no-dropout "
+                       f"kernel per step: {run['per_step_launches']}")
+        if run["host_waits"]:
+            bad.append(f"{label}: {run['host_waits']} calls made the host "
+                       "wait for the device")
+        if not run["watchdog"]:
+            bad.append(f"{label}: the watchdog was not armed")
+        if not all(math.isfinite(v) for v in run["losses"]):
+            bad.append(f"{label}: losses not finite: {run['losses']}")
+    return bad
+
+
+def ckpt_phase(zero_res):
+    """Drive the crash-safe checkpoint on the card: ZeRO-1 AdamW on the
+    TransformerLM in a one-rank launcher job with the stuck-collective
+    watchdog armed; 5 steps as a control, then 3 steps and
+    ``checkpoint.save_step`` (``HVDTPU_CHECKPOINT_KEEP=1``); a new launcher
+    job restores the newest step and runs steps 4 and 5, held to the
+    control's losses and final parameters. Returns the flash kernels'
+    launches of its runs."""
+    import shutil
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="hvd-ckpt-") as tmp:
+        # The checkpoint holds the parameters and both AdamW moments in
+        # float32, and the control's parameters are kept beside it.
+        need = 5 * 364_000_000 * 4
+        free = shutil.disk_usage(tmp).free
+        if free < 1.5 * need:
+            fail(f"[ckpt] {tmp} has {free / 1e9:.1f} GB free; the phase "
+                 f"writes about {need / 1e9:.1f} GB")
+        log(f"[ckpt] {tmp}: {free / 1e9:.1f} GB free")
+        res = {}
+        for part in ("save", "restore"):
+            out = os.path.join(tmp, f"{part}.json")
+            env = _one_rank_env(HVDTPU_COLLECTIVE_TIMEOUT=CKPT_TIMEOUT_S,
+                                HVDTPU_CHECKPOINT_KEEP="1")
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--ckpt-child",
+                 out, tmp, part], env=env, timeout=900)
+            if proc.returncode != 0:
+                fail(f"[ckpt] the {part} launcher job exited "
+                     f"{proc.returncode}")
+            with open(out) as f:
+                res.update(json.load(f))
+    ctl, save, rest = res["control"], res["save"], res["restore"]
+    gb = rest["file_bytes"] / 1e9
+    log(f"[ckpt] control losses {ctl['losses']}; saved after step "
+        f"{CKPT_AT}, restored in a new launcher job: steps "
+        f"{CKPT_AT + 1}-{CKPT_STEPS} {rest['losses']} (control "
+        f"{ctl['losses'][CKPT_AT:]}); final parameters max |difference| "
+        f"{rest['param_max_abs']:.3e}")
+    log(f"[ckpt] file {rest['file_bytes']} bytes; save {save['save_s']:.2f}"
+        f" s ({gb / save['save_s']:.2f} GB/s; of it the ZeRO state's "
+        f"assembly {save['assemble_s']:.2f} s); restore "
+        f"{rest['restore_s']:.2f} s ({gb / rest['restore_s']:.2f} GB/s); "
+        f"verify_checkpoint {rest['verify_s']:.2f} s: "
+        f"{rest['verified']}")
+    log(f"[ckpt] step ms (median of steps 2..{CKPT_STEPS}, watchdog armed, "
+        f"HVDTPU_COLLECTIVE_TIMEOUT={CKPT_TIMEOUT_S}) {ctl['step_ms']:.1f} "
+        f"against [zero]'s {zero_res['step_ms']:.1f} "
+        f"({ctl['step_ms'] - zero_res['step_ms']:+.1f} ms); calls that "
+        f"made the host wait: "
+        f"{sum(r['host_waits'] for r in res.values())}")
+    bad = ckpt_verdict(res)
+    if bad:
+        fail("[ckpt] " + "; ".join(bad))
+    launches = {}
+    for run in res.values():
+        for n, c in run["launches"].items():
+            launches[n] = launches.get(n, 0) + c
+    return launches
+
+
+def ckpt_child(out_path, tmp, part):
+    """A child of ``ckpt_phase`` (``chip_smoke.py --ckpt-child OUT DIR
+    PART``): rank 0 of a one-rank launcher job on the NCCL-delegated plane.
+    ``save``: the control run, then 3 steps and the checkpoint; ``restore``:
+    the newest checkpoint under DIR, then steps 4-5."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from horovod_tpu_torch import native as hnative
+    os.environ["HVDTPU_PEERS"] = \
+        f"127.0.0.1:{hnative.reserve_listen_port()}"
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import basics, checkpoint, models
+    from horovod_tpu_torch.models import transformer as tmod
+    from horovod_tpu_torch.ops import flash_attention as fa
+    hvd.init()
+    rt = basics.runtime()
+    if rt.mode != basics.MODE_SPMD or rt.backend.name != "nccl-global":
+        fail(f"[ckpt] expected a launcher job on the NCCL-delegated plane, "
+             f"got {rt.mode}, {rt.backend.name}")
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    control_params = os.path.join(tmp, "control.pt")
+
+    def host_waits(fn):
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return out, [w for w in got
+                     if "called a synchronizing" in str(w.message)]
+
+    def setup():
+        torch.cuda.empty_cache()
+        cfg, model, step, x, y = transformer_setup(hvd, models, zero=True)
+        tmod._rope_tables(cfg.max_len, cfg.hidden // cfg.heads,
+                          hvd.device())
+        return model, step, x, y
+
+    def run(label, model, step, x, y, steps):
+        fa.reset_launches()
+        r = {"losses": [], "per_step_launches": [], "host_waits": 0,
+             "watchdog": rt.coordinator._watchdog is not None}
+        times = []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            prev = dict(fa.LAUNCHES)
+            t0 = time.perf_counter()
+            loss, w = host_waits(lambda: step(model, (x, y)))
+            loss = loss.item()
+            times.append((time.perf_counter() - t0) * 1e3)
+            r["host_waits"] += len(w)
+            r["losses"].append(loss)
+            r["per_step_launches"].append(
+                {n: fa.LAUNCHES[n] - prev[n]
+                 for n in ("fwd", "bwd_dkv", "bwd_dq")})
+            log(f"  [ckpt] {label} step {i + 1}: loss {loss:.6f}  "
+                f"{times[-1]:.1f} ms  launches {r['per_step_launches'][-1]}")
+        r.update(step_ms=_median(times[1:]) if len(times) > 1 else times[0],
+                 launches={n: fa.LAUNCHES[n]
+                           for n in ("fwd", "bwd_dkv", "bwd_dq")})
+        return r
+
+    res = {}
+    if part == "save":
+        model, step, x, y = setup()
+        res["control"] = run("control", model, step, x, y, CKPT_STEPS)
+        torch.save({k: v.detach().cpu() for k, v in
+                    model.state_dict().items()}, control_params)
+        del model, step
+        model, step, x, y = setup()
+        r = run("save", model, step, x, y, CKPT_AT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt_state = step.optimizer.state_dict()
+        r["assemble_s"] = time.perf_counter() - t0
+        checkpoint.save_step(ckpt_dir, CKPT_AT, {
+            "model": model.state_dict(), "opt": opt_state,
+            "losses": r["losses"]})
+        r["save_s"] = time.perf_counter() - t0
+        res["save"] = r
+    else:
+        model, step, x, y = setup()
+        torch.cuda.synchronize()
+        path = os.path.join(ckpt_dir, f"step_{CKPT_AT}")
+        t0 = time.perf_counter()
+        ok, reason = checkpoint.verify_checkpoint(path)
+        verify_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_step, state = checkpoint.restore_latest(ckpt_dir)
+        model.load_state_dict(checkpoint.to_tensors(state["model"]))
+        step.optimizer.load_state_dict(state["opt"])
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del state
+        r = run("restore", model, step, x, y, CKPT_STEPS - CKPT_AT)
+        want = torch.load(control_params)
+        got = model.state_dict()
+        r.update(restored_step=got_step, restore_s=restore_s,
+                 verify_s=verify_s, verified=ok, verify_reason=reason,
+                 file_bytes=os.path.getsize(path),
+                 kept=sorted(checkpoint._list_steps(ckpt_dir)),
+                 param_max_abs=max(float((got[k].cpu() - v).abs().max())
+                                   for k, v in want.items()))
+        res["restore"] = r
+    hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -2621,9 +2858,12 @@ def main():
     compress_launches = compress_phase(native_res, resnet_losses)
     log("[launches] [compress] " + ", ".join(
         f"{n}={c}" for n, c in compress_launches.items()))
-    zero_launches = zero_phase(native_res)
+    zero_launches, zero_res = zero_phase(native_res)
     log("[launches] [zero] " + ", ".join(
         f"{n}={c}" for n, c in zero_launches.items()))
+    ckpt_launches = ckpt_phase(zero_res)
+    log("[launches] [ckpt] " + ", ".join(
+        f"{n}={c}" for n, c in ckpt_launches.items()))
     log("[launches] " + ", ".join(f"{n}={c}" for n, c in launches.items()))
     if set(launches) != set(KERNELS) or not all(launches.values()):
         fail(f"a kernel was not launched on its path: {launches}")
@@ -2657,5 +2897,7 @@ if __name__ == "__main__":
         compress_child(sys.argv[2])
     elif sys.argv[1:2] == ["--zero-child"]:
         zero_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--ckpt-child"]:
+        ckpt_child(*sys.argv[2:5])
     else:
         main()

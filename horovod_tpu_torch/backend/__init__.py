@@ -76,6 +76,11 @@ class Backend(ABC):
     def remove_process_set(self, ps):
         pass
 
+    def watchdog_abort(self, exc):
+        """The watchdog's coordinated abort (``guardian.py``): release what
+        the backend holds between cycles (nothing, on this plane: each
+        operation runs inside its cycle)."""
+
     def close(self):
         pass
 

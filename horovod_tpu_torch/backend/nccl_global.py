@@ -21,9 +21,23 @@ what the controller negotiated).
   request enters the negotiation once it has landed; the result goes back
   to the card the same way. Adasum (VHDD in the core) is staged likewise,
   one request per tensor, through pinned buffers reused across steps.
-- Under ``HVDTPU_COMPRESSION``'s catch-all wire rule (``int8``/``fp8``),
-  every float sum response of at least the threshold runs the quantized
-  pipeline (``_quantized_allreduce``); per-call codecs are ignored here.
+- A wire codec (``int8``/``fp8``) runs the quantized pipeline
+  (``_quantized_allreduce``). The compression plane stamps each entry
+  with the codec its call asked for (``compression=Compression.int8``,
+  ``DistributedOptimizer(compression=...)``); a fused response whose
+  entries share one stamp is quantized as one buffer, and a response that
+  mixes stamps is executed as one collective per stamp, in entry order
+  (every rank holds the same stamps, so every rank splits alike). Error-
+  feedback residuals are kept per native name and elastic version in the
+  plane's store. Entries with no stamp fall under ``HVDTPU_COMPRESSION``'s
+  catch-all wire rule: a float sum of at least the threshold is quantized,
+  without error feedback. A stamp needs every rank's entry: a response
+  with a joined rank's slot and a stamped entry raises.
+- With the watchdog armed (``HVDTPU_COLLECTIVE_TIMEOUT``), a response
+  handed to NCCL stays in view (``device_inflight``) until the card
+  finished it, and a watchdog abort aborts this rank's communicators, so
+  that a collective stuck on a frozen peer returns; the backend then
+  refuses further work with the abort's error.
 
 Every call runs on the coordinator's cycle thread, the only thread that
 issues collectives after ``init``; on CUDA it runs on the backend's own
@@ -33,6 +47,7 @@ stream, after the submitting streams' events.
 import contextlib
 import functools
 import os
+import time
 
 import torch
 
@@ -143,11 +158,14 @@ class NcclGlobalBackend(TcpBackend):
         if device.type == "cuda" and not dist.is_nccl_available():
             raise HorovodInternalError(
                 "CUDA tensors need NCCL, which this build of torch lacks")
-        if envparse.get_bool(envparse.ELASTIC):
-            # An elastic worker aborts and re-forms its communicators
-            # itself (``_abort_communicators``, ``close``): NCCL's
-            # watchdog must not tear the process down on the error a dead
-            # peer leaves behind (the abort API's documented setting).
+        if (envparse.get_bool(envparse.ELASTIC)
+                or envparse.get_float(envparse.COLLECTIVE_TIMEOUT, 0.0) > 0):
+            # An elastic worker, or one under the port's watchdog, aborts
+            # and re-forms its communicators itself (``_abort_communicators``,
+            # ``close``): torch's own NCCL watchdog (its timeout is 10
+            # minutes by default, after the port's) must not tear the
+            # process down on the error an aborted collective leaves
+            # behind (the abort API's documented setting).
             os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
         store = _process_group_store(topology)
         kw = ({"init_method": "env://"} if store is None
@@ -159,9 +177,13 @@ class NcclGlobalBackend(TcpBackend):
         dist.init_process_group(self.dist_backend, rank=topology.rank,
                                 world_size=topology.size, **kw)
         # Set by the cycle thread once the native core reports a dead
-        # peer: the NCCL communicators were aborted, so close() must not
-        # wait for them.
+        # peer or the watchdog aborts: the NCCL communicators were aborted,
+        # so close() must not wait for them.
         self._aborted = False
+        # Watchdog on (set by the coordinator): executed NCCL responses
+        # stay in view until their event completes: (names, t, event).
+        self.track_device = False
+        self._device_work = []
         super().__init__(topology)
         self._red = {native.RED_SUM: dist.ReduceOp.SUM,
                      native.RED_MIN: dist.ReduceOp.MIN,
@@ -183,9 +205,10 @@ class NcclGlobalBackend(TcpBackend):
         self.responses = 0
         self.response_bytes = 0
         self.fusion_copy_bytes = 0
-        # Quantized allreduce: only the env policy's catch-all wire rule
-        # applies here (fused native responses carry handles, not names;
-        # no error feedback). Every rank parses the same env.
+        # The env policy's catch-all wire rule, for responses whose
+        # entries carry no codec stamp (no error feedback: a fused
+        # response's layout moves with what the core fused). Every rank
+        # parses the same env.
         from ..compression import codecs
         from ..compression.policy import simple_wire_policy
         codec_name, self._q_block, self._q_threshold = simple_wire_policy()
@@ -193,9 +216,9 @@ class NcclGlobalBackend(TcpBackend):
                          else None)
         if self._q_codec is not None:
             get_logger().info(
-                "%s: quantized allreduce on (codec=%s block=%d threshold="
-                "%d; no error feedback on the delegated plane)", self.name,
-                codec_name, self._q_block, self._q_threshold)
+                "%s: quantized allreduce on for unstamped responses (codec="
+                "%s block=%d threshold=%d)", self.name, codec_name,
+                self._q_block, self._q_threshold)
         # Quantized responses, their input bytes and what the codec puts
         # on the wire for them (payload and scales).
         self.quantized_responses = 0
@@ -227,6 +250,10 @@ class NcclGlobalBackend(TcpBackend):
 
     def _enqueue_entry(self, entry):
         from ..ops import reduce_ops
+        if self._aborted and self.dist_backend == "nccl":
+            raise self._abort_exc or HorovodInternalError(
+                "this rank's NCCL communicators were aborted; shut the "
+                "runtime down before the next collective")
         if entry.kind == "allreduce" and entry.op == reduce_ops.Adasum:
             # VHDD stays on the host plane (the core refuses a delegated
             # Adasum): CUDA tensors are staged through pinned memory.
@@ -373,24 +400,63 @@ class NcclGlobalBackend(TcpBackend):
             self._abort_communicators()
         return done
 
-    def _abort_communicators(self):
-        """The native core reported a dead peer (its transport failed
-        before NCCL was called for the next response): abort every
-        communicator of this rank's groups, so that a collective already
-        in flight towards the dead peer returns instead of hanging the
-        device and every host call that waits for it."""
+    def _abort_communicators(self, why="native core lost a peer",
+                             strict=False):
+        """Abort every communicator of this rank's groups, so that a
+        collective already in flight towards a dead or frozen peer returns
+        instead of hanging the device and every host call that waits for
+        it. Called when the native core reports a dead peer (best effort:
+        the core already failed every handle) and on a watchdog abort
+        (``strict``: a communicator that fails to abort raises, since the
+        card may still be stuck)."""
         self._aborted = True
+        self._device_work = []
         if not self._dist.is_initialized():
             return
-        get_logger().warning("native core lost a peer: aborting this "
-                             "rank's NCCL communicators")
+        get_logger().warning("%s: aborting this rank's NCCL communicators",
+                             why)
         groups = [g for g, _ in self._groups.values() if g is not None]
+        failed = []
         for g in groups + [self._dist.group.WORLD]:
             try:
                 g.abort()
-            except Exception as exc:  # noqa: BLE001 - best effort
+            except Exception as exc:  # noqa: BLE001 - collected below
                 get_logger().warning("aborting an NCCL communicator "
                                      "failed: %s", exc)
+                failed.append(exc)
+        if strict and failed:
+            raise HorovodInternalError(
+                f"{len(failed)} NCCL communicator(s) failed to abort: "
+                f"{failed[0]}")
+
+    def watchdog_abort(self, exc):
+        """The watchdog's coordinated abort: fail every pending entry and,
+        on NCCL, abort the communicators too, releasing the responses NCCL
+        was already handed. A frozen peer keeps its sockets open, so the
+        native core never reports it: this is the only way out."""
+        super().watchdog_abort(exc)
+        self._abort_exc = exc
+        if self.dist_backend == "nccl" and not self._aborted:
+            self._abort_communicators("watchdog abort", strict=True)
+
+    def unblock(self, exc):
+        """The watchdog's thread, the cycle thread stuck in a native cycle
+        on a frozen peer: abort the communicators first (NCCL work already
+        issued towards the peer returns, and so does any host call waiting
+        for it), then shut the core's peer connections down."""
+        self._abort_exc = exc
+        if self.dist_backend == "nccl" and not self._aborted:
+            self._abort_communicators("watchdog abort", strict=True)
+        super().unblock(exc)
+
+    def device_inflight(self, now):
+        """``(native name, age)`` of every response handed to NCCL whose
+        event has not completed (with ``track_device``); responses complete
+        in order on the backend's stream."""
+        work = self._device_work
+        while work and work[0][2].query():
+            work.pop(0)
+        return [(nm, now - t) for names, t, _ in work for nm in names]
 
     def _sweep_one(self, p):
         if isinstance(p.unpack, _Staged):
@@ -460,6 +526,10 @@ class NcclGlobalBackend(TcpBackend):
         with self._on_stream(local):
             run = getattr(self, "_delegated_" + kind)
             nbytes = run(d, group, ranks, dtype, local)
+            if self.track_device and self._stream is not None:
+                event = torch.cuda.Event()
+                event.record(self._stream)
+                self._device_work.append((names, time.monotonic(), event))
         for h in d["handles"]:
             if h >= 0:
                 self.core.delegated_complete(h)
@@ -488,6 +558,29 @@ class NcclGlobalBackend(TcpBackend):
 
     def _delegated_allreduce(self, d, group, ranks, dtype, local):
         sizes = [int(s) for s in d["sizes"]]
+        stamps = [None if item is None else item[0].codec for item in local]
+        if all(c is None for c in stamps):
+            return self._allreduce_part(d, group, ranks, dtype, sizes, local,
+                                        None)
+        if any(item is None for item in local):
+            raise HorovodInternalError(
+                "a response with a per-call codec stamp holds a joined "
+                "rank's slot: the joined rank cannot know the codec")
+        # One collective per stamp, in entry order: every rank holds the
+        # same stamps, so every rank splits alike.
+        nbytes = 0
+        for stamp in dict.fromkeys(stamps):
+            idx = [i for i, c in enumerate(stamps) if c == stamp]
+            nbytes += self._allreduce_part(
+                d, group, ranks, dtype, [sizes[i] for i in idx],
+                [local[i] for i in idx], stamp)
+        return nbytes
+
+    def _allreduce_part(self, d, group, ranks, dtype, sizes, local, stamp):
+        """The allreduce of some entries of a response: fused into the
+        fusion buffer (prescaled), reduced plainly, by the stamp's wire
+        codec with error feedback, or by the catch-all rule, and copied
+        back."""
         pre, op = d["prescale"], d["red_op"]
         esize = torch.empty((), dtype=dtype).element_size()
         fused = len(local) > 1 or local[0] is None or pre != 1.0
@@ -508,18 +601,28 @@ class NcclGlobalBackend(TcpBackend):
                 else:
                     seg.copy_(item[1].reshape(-1))
                     scale_([seg], pre)
-        if (self._q_codec is not None and op == native.RED_SUM
-                and dtype.is_floating_point
-                and buf.numel() >= self._q_threshold):
-            out = self._quantized_allreduce(buf, group, len(ranks),
-                                            d["postscale"])
+        out = None
+        if stamp is not None:
+            from ..compression import codecs
+            residual = self._residuals_in(local, sizes)
+            out, new_res = self._quantized_allreduce(
+                buf, group, len(ranks), d["postscale"],
+                codecs.CODECS[stamp[0]], stamp[1], residual)
+            self._store_residuals(local, sizes, new_res)
+        elif (self._q_codec is not None and op == native.RED_SUM
+              and dtype.is_floating_point
+              and buf.numel() >= self._q_threshold):
+            out, _ = self._quantized_allreduce(
+                buf, group, len(ranks), d["postscale"], self._q_codec,
+                self._q_block)
+        else:
+            self._dist.all_reduce(buf, op=self._red[op], group=group)
+            scale_([buf], d["postscale"])
+        if out is not None:
             if fused:
                 buf = out
             else:
                 buf.copy_(out)
-        else:
-            self._dist.all_reduce(buf, op=self._red[op], group=group)
-            scale_([buf], d["postscale"])
         if fused:
             mine = [(item[1].reshape(-1), seg) for item, seg
                     in zip(local, buf.split(sizes)) if item is not None]
@@ -530,22 +633,56 @@ class NcclGlobalBackend(TcpBackend):
                 m.numel() for m, _ in mine) * esize
         return sum(sizes) * esize
 
-    def _quantized_allreduce(self, buf, group, n, post):
-        """The quantized pipeline of one fused response, on the backend's
+    def _residuals_in(self, local, sizes):
+        """The error-feedback residuals of ``local``'s tensors side by
+        side (float32; zeros where none is stored, or its size moved), or
+        None with error feedback off. Keyed by native name (a grouped
+        entry's tensors may land in different responses)."""
+        plane = self.compression_plane
+        if plane is None or not plane.error_feedback:
+            return None
+        parts = []
+        for item, size in zip(local, sizes):
+            stored = plane.residuals.get(item[2])
+            if (stored is None or stored[0].numel() != size
+                    or stored[0].device != self.device):
+                parts.append(torch.zeros(size, dtype=torch.float32,
+                                         device=self.device))
+            else:
+                parts.append(stored[0].reshape(-1))
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def _store_residuals(self, local, sizes, residual):
+        if residual is None:
+            return
+        for item, seg in zip(local, residual.split(sizes)):
+            self.compression_plane.residuals.put(
+                item[2], [seg.reshape(item[1].shape)])
+
+    def _quantized_allreduce(self, buf, group, n, post, codec, block,
+                             residual=None):
+        """The quantized pipeline of one fused buffer, on the backend's
         stream (the JAX package's ``qallreduce``, xla_global.py:315-343):
+        add the error-feedback ``residual`` (float32, one per element),
         pad to a multiple of n·block (blocks fall on the same elements at
         any such length), encode the n chunks, ``all_to_all_single`` the
         payload and the float32 scales, dequantize and sum in float32,
         postscale, re-encode, ``all_gather_into_tensor`` both, and decode
-        into the response's dtype. Returns the reduced flat tensor."""
+        into the buffer's dtype. Returns the reduced flat tensor and, with
+        a residual, the new one: what this rank's encode lost."""
         from ..compression.codecs import padded_len
-        codec, block = self._q_codec, self._q_block
         total = buf.numel()
         padded = padded_len(total, n, block)
         flat = buf.to(torch.float32)
+        if residual is not None:
+            flat = flat + residual
         if padded != total:
             flat = torch.nn.functional.pad(flat, (0, padded - total))
-        q, s = codec.encode(flat.view(n, padded // n), block)
+        rows = flat.view(n, padded // n)
+        q, s = codec.encode(rows, block)
+        new_res = None
+        if residual is not None:
+            new_res = (rows - codec.decode(q, s, block)).reshape(-1)[:total]
         q_in, s_in = torch.empty_like(q), torch.empty_like(s)
         self._dist.all_to_all_single(q_in, q, group=group)
         self._dist.all_to_all_single(s_in, s, group=group)
@@ -562,7 +699,7 @@ class NcclGlobalBackend(TcpBackend):
         self.quantized_bytes += total * buf.element_size()
         self.quantized_wire_bytes += codec.wire_bytes(total, block,
                                                       buf.element_size())
-        return out
+        return out, new_res
 
     def _delegated_broadcast(self, d, group, ranks, dtype, local):
         count, root = int(d["sizes"][0]), int(d["sizes"][1])

@@ -104,6 +104,12 @@ class TcpBackend:
         self._pending = []
         self._sweep_event = None
         self._transport_dead = False
+        # Set by a watchdog abort: a peer that stopped taking part never
+        # agrees to the consensus shutdown, so close() does not wait for it;
+        # the abort's error then fails what the core still held.
+        self._abandoned = False
+        self._abort_exc = None
+        self._peers = peers
         self._ps_map = {0: 0}   # python process-set id -> native id
         self._log = get_logger()
         # Set by the coordinator: releases an entry's name before its
@@ -328,7 +334,7 @@ class TcpBackend:
         rc = self.core.run_cycle()
         if rc == -2:
             self._transport_dead = True
-            self._fail_all(HorovodInternalError(
+            self._fail_all(self._abort_exc or HorovodInternalError(
                 "native core transport failure (peer died?)"))
             return 0
         # A handle turns terminal only in a cycle that completed one natively
@@ -458,10 +464,28 @@ class TcpBackend:
                     pass
         self._fail_all(exc)
 
+    def watchdog_abort(self, exc):
+        """The watchdog's coordinated abort: fail every pending negotiation
+        with ``exc``; close() then skips the consensus shutdown, which the
+        stuck peer would never join."""
+        self.abort_inflight(exc)
+        self._abandoned = True
+
+    def unblock(self, exc):
+        """Called from the watchdog's thread while the cycle thread is stuck
+        in a native cycle: a frozen peer keeps its sockets open, so the core
+        waits on it for ever. Shut the core's peer connections down, so that
+        the cycle returns with a transport failure, which fails what the
+        core held with ``exc``."""
+        self._abort_exc = exc
+        self._abandoned = True
+        native.shutdown_peer_connections(self._peers, self.topology.rank)
+
     def close(self):
         try:
-            if self._transport_dead:
-                # A dead peer can never agree to the consensus shutdown.
+            if self._transport_dead or self._abandoned:
+                # A dead (or stuck) peer can never agree to the consensus
+                # shutdown.
                 self._fail_all(HorovodInternalError(
                     "runtime shut down after transport failure"))
                 return

@@ -52,7 +52,6 @@ class CompressionPlane:
             envparse.COMPRESSION_ERROR_FEEDBACK, True)
         self.residuals = residual.ResidualStore()
         self._delegated = delegated
-        self._warned_native = False
         self._log = get_logger()
         self._metrics_on = telemetry.enabled()
         # The error histogram reads every residual back to the host: one
@@ -80,17 +79,11 @@ class CompressionPlane:
         Adasum and process-set rejects, on the submitting thread."""
         explicit = entry.codec
         entry.codec = None
-        if self._delegated:
-            # The delegated plane executes fused native responses
-            # (handles, not names) and applies the env policy's catch-all
-            # when it executes them (policy.simple_wire_policy).
-            if explicit is not None and not self._warned_native:
-                self._warned_native = True
-                self._log.warning(
-                    "compression: per-tensor codec requests are ignored "
-                    "on the delegated plane; it applies the "
-                    "HVDTPU_COMPRESSION catch-all at the data plane "
-                    "instead (no error feedback, no name globs)")
+        if self._delegated and explicit is None:
+            # The delegated plane applies the env policy's catch-all to
+            # unstamped responses when it executes them
+            # (policy.simple_wire_policy): fused native responses carry
+            # handles, not names.
             return
         nelems = sum(t.numel() for t in entry.tensors)
         dtype = entry.tensors[0].dtype if entry.tensors else None

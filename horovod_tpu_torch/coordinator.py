@@ -133,11 +133,12 @@ class TensorEntry:
 
     __slots__ = ("name", "kind", "tensors", "op", "root_rank", "splits",
                  "prescale", "postscale", "process_set", "handle",
-                 "enqueue_time", "ready", "device", "site", "codec")
+                 "enqueue_time", "ready", "device", "site", "codec",
+                 "uneven", "guard_token")
 
     def __init__(self, name, kind, tensors, process_set, op=None,
                  root_rank=None, splits=None, prescale=None, postscale=None,
-                 codec=None):
+                 codec=None, uneven=False):
         self.name = name
         self.kind = kind
         self.tensors = tensors
@@ -156,6 +157,12 @@ class TensorEntry:
         # into the (name, block) pair the fusion plane groups by; None =
         # uncompressed.
         self.codec = codec
+        # A ragged allgather: dim 0 may differ per rank (the consistency
+        # digest leaves it out).
+        self.uneven = uneven
+        # Set by the consistency guard when this submission is one it
+        # verifies before dispatch: (name, occurrence, digest).
+        self.guard_token = None
         self.device = tensors[0].device if tensors else None
         self.ready = None
         if self.device is not None and self.device.type == "cuda":
@@ -180,6 +187,14 @@ class Coordinator:
         self.fusion_threshold = envparse.get_int(
             envparse.FUSION_THRESHOLD, DEFAULT_FUSION_THRESHOLD)
         self._queue = []
+        # Set when a watchdog abort could not release the backend's work.
+        self._broken = None
+        # Launcher jobs with a watchdog: its scan runs on a thread of its
+        # own (a native cycle blocked on a frozen peer never returns to
+        # scan), which hands an abort to the cycle thread.
+        self._watch_thread = None
+        self._abort_request = None
+        self._in_cycle_since = None
         # (process_set_id, name) -> [enqueue_time, callsite] for every
         # in-flight named op: duplicate detection and the stall scan.
         self._pending_names = {}
@@ -203,9 +218,24 @@ class Coordinator:
                 envparse.STALL_CHECK_TIME, envparse.get_float(
                     envparse.STALL_CHECK_TIME_SECONDS,
                     DEFAULT_STALL_WARN_S))
+        # Data-plane guardian (guardian.py): both None when their knobs are
+        # unset, and the hot paths pay one attribute check.
+        from . import guardian
+        self._guardian = guardian.make_guard(runtime)
+        self._watchdog = guardian.make_watchdog(runtime)
         self._stall_scan_period = (max(1.0, min(self.stall_warn_s / 2.0,
                                                 10.0))
                                    if self.stall_warn_s > 0 else 10.0)
+        # Age past which an op counts as stalled for the scan: the warning
+        # threshold, tightened to half the abort timeout under a watchdog;
+        # the scans come often enough to notice the timeout.
+        self._stall_observe_s = (self.stall_warn_s if self.stall_warn_s > 0
+                                 else float("inf"))
+        if self._watchdog is not None:
+            self._stall_scan_period = max(0.25, min(
+                self._stall_scan_period, self._watchdog.timeout_s / 4.0))
+            self._stall_observe_s = min(self._stall_observe_s,
+                                        self._watchdog.timeout_s / 2.0)
         self._last_stall_scan = time.monotonic()
         self._stall_logged = set()
         self._stall_last_log = -float("inf")
@@ -231,6 +261,9 @@ class Coordinator:
         self._m_stalled_oldest = telemetry.gauge(
             "hvd_coordinator_stalled_oldest_age_seconds",
             "Age of the oldest stalled operation")
+        self._m_aborts = telemetry.counter(
+            "hvd_collective_abort_total",
+            "Coordinated watchdog aborts of in-flight collectives")
         # Gradient-compression plane (compression/): None when
         # HVDTPU_COMPRESSION is unset, built on demand for an explicit
         # per-call codec. Sparse gradient plane (ops/sparse.py): None when
@@ -258,6 +291,12 @@ class Coordinator:
             self._thread = threading.Thread(
                 target=self._loop, name="hvd-torch-coordinator", daemon=True)
             self._thread.start()
+            if self._watchdog is not None and getattr(
+                    self.runtime.backend, "drives_own_cycle", False):
+                self._watch_thread = threading.Thread(
+                    target=self._watch_loop, name="hvd-torch-watchdog",
+                    daemon=True)
+                self._watch_thread.start()
 
     def stop(self):
         with self._lock:
@@ -268,6 +307,8 @@ class Coordinator:
             self._running = False
         self._wakeup.set()
         self._thread.join(timeout=10)
+        if self._watch_thread is not None:
+            self._watch_thread.join(timeout=10)
         with self._lock:
             stranded = self._queue
             self._queue = []
@@ -288,12 +329,19 @@ class Coordinator:
                     self.runtime, force=True)
                 self.runtime.backend.compression_plane = self._compression
             # Raises the Adasum and process-set rejects here, on the
-            # submitting thread.
+            # submitting thread; before the digest, so that every rank's
+            # digest carries the codec it selected.
             self._compression.stamp(entry)
+        if self._guardian is not None:
+            # Publish the digest before the entry can reach a cycle, so
+            # that a peer's verify never waits for it; outside the lock.
+            self._guardian.on_submit(entry)
         key = (entry.process_set.process_set_id, entry.name)
         if entry.name and entry.site is None:
             entry.site = format_user_frame(skip=3)
         with self._lock:
+            if self._broken is not None:
+                raise self._broken
             if not self._running:
                 raise HorovodInternalError(
                     "Coordinator is shut down; cannot submit operations")
@@ -349,7 +397,7 @@ class Coordinator:
                 break
             time.sleep(self.cycle_time_s)
             self._run_cycle()
-            if self.stall_warn_s > 0:
+            if self.stall_warn_s > 0 or self._watchdog is not None:
                 self._check_stalls()
 
     def _loop_native(self, backend):
@@ -364,6 +412,9 @@ class Coordinator:
         # The tcp-native plane runs wire codecs with error feedback through
         # the compression plane (None when off).
         backend.compression_plane = self._compression
+        if self._watchdog is not None:
+            # Executed responses stay in view until the card finished them.
+            backend.track_device = True
         while self._running:
             if not (self._queue or backend.pending_count()):
                 self._wakeup.wait(timeout=IDLE_CYCLE_S)
@@ -377,10 +428,19 @@ class Coordinator:
                 self._queue = []
             self.cycles += 1
             cycle_ts_us = time.perf_counter_ns() // 1000
+            if self._guardian is not None and batch:
+                batch = self._verify_consistency(batch)
             try:
                 for e in batch:
                     backend.submit_entry(e)
+                self._in_cycle_since = time.monotonic()
                 processed = backend.run_cycle()
+                self._in_cycle_since = None
+                with self._lock:
+                    diagnostic, self._abort_request = \
+                        self._abort_request, None
+                if diagnostic is not None:
+                    self._abort_inflight(diagnostic)
             except Exception as exc:  # noqa: BLE001 - keeps waiters alive
                 # The backend isolates each entry's failures; anything
                 # else would leave every waiter blocked on a dead thread.
@@ -400,33 +460,98 @@ class Coordinator:
                 # Only cycles that moved tensors; idle ticks would flood
                 # the trace.
                 timeline.marker("CYCLE_START", ts_us=cycle_ts_us)
-            if self.stall_warn_s > 0:
+            if self.stall_warn_s > 0 and self._watch_thread is None:
                 self._check_stalls()
 
+    def _watch_loop(self):
+        """The watchdog's thread (launcher jobs): the stall scan, off the
+        cycle thread."""
+        while self._running:
+            time.sleep(0.25)   # the shortest scan period
+            if self._running:
+                self._check_stalls()
+
+    def _request_abort(self, diagnostic):
+        """Abort on the cycle thread, which owns the backend; from the
+        watchdog's thread the request is handed over, and a cycle thread
+        stuck in a native cycle for a scan period (a frozen peer) is
+        unblocked first (``backend.unblock``)."""
+        if self._watch_thread is None:
+            self._abort_inflight(diagnostic)
+            return
+        with self._lock:
+            self._abort_request = diagnostic
+        self._wakeup.set()
+        since = self._in_cycle_since
+        if since is not None and \
+                time.monotonic() - since > self._stall_scan_period:
+            from .exceptions import CollectiveAbortError
+            try:
+                self.runtime.backend.unblock(CollectiveAbortError(diagnostic))
+            except Exception as exc:  # noqa: BLE001 - raised to callers
+                self._log.exception("unblocking the native cycle failed")
+                self._broken = CollectiveAbortError(
+                    f"{diagnostic}\nUnblocking the native cycle failed "
+                    f"({type(exc).__name__}: {exc}); shut the runtime "
+                    "down before the next collective.")
+
     def _check_stalls(self, now=None):
-        """Warn about submissions in flight longer than the stall threshold
-        (the Python plane's stall inspector, reference:
-        horovod/common/stall_inspector.cc): feeds the stalled-op gauges and
-        logs one summary per change of the stalled set. Scans at most every
-        ``_stall_scan_period`` seconds."""
+        """Scan for operations in flight longer than the stall threshold
+        (the reference's stall inspector, horovod/common/
+        stall_inspector.cc): feed the stalled-op gauges and log one summary
+        per change of the stalled set, naming the ranks that never
+        submitted the oldest op when a watchdog gathers the peers' views.
+        With ``HVDTPU_COLLECTIVE_TIMEOUT`` armed, past the timeout (or on a
+        peer's abort notice) every in-flight operation is aborted with
+        ``CollectiveAbortError``. A response NCCL was handed counts as in
+        flight until the card finished it (``device_inflight``): a peer
+        frozen inside a collective leaves the host nothing else to see.
+        Scans at most every ``_stall_scan_period`` seconds."""
         if now is None:
             now = time.monotonic()
         if now - self._last_stall_scan < self._stall_scan_period:
             return
         self._last_stall_scan = now
+        stalled = []
         with self._lock:
-            stalled = [(key[1], now - info[0], info[1])
-                       for key, info in self._pending_names.items()
-                       if now - info[0] > self.stall_warn_s]
+            inflight = [key[1] for key in self._pending_names if key[1]]
+            for key, info in self._pending_names.items():
+                age = now - info[0]
+                if age > self._stall_observe_s:
+                    stalled.append((key[1], age, info[1]))
+        wd = self._watchdog
+        peer_abort = None
+        if wd is not None:
+            device = getattr(self.runtime.backend, "device_inflight", None)
+            for name, age in (device(now) if device is not None else ()):
+                inflight.append(name)
+                if age > self._stall_observe_s:
+                    stalled.append((name, age, "the card (NCCL)"))
+            # Every scan publishes this rank's view, so that a peer never
+            # judges a stale one; the peers are read only on a stall.
+            _, peer_abort = wd.observe(
+                inflight, [(n, a) for n, a, _ in stalled], now)
         if not stalled:
             self._m_stalled.set(0)
             self._m_stalled_oldest.set(0.0)
             self._stall_logged = set()
             return
         stalled.sort(key=lambda item: -item[1])
-        oldest_name, oldest_age, oldest_site = stalled[0]
         self._m_stalled.set(len(stalled))
-        self._m_stalled_oldest.set(oldest_age)
+        self._m_stalled_oldest.set(stalled[0][1])
+        if wd is not None and (peer_abort is not None
+                               or wd.should_abort(stalled[0][1])):
+            if self._abort_request is None:
+                self._request_abort(self._abort_diagnostic(stalled,
+                                                           peer_abort))
+            return
+        # The watchdog may observe below the warning threshold: warn only
+        # about ops past it.
+        stalled = [s for s in stalled if s[1] > self.stall_warn_s] \
+            if self.stall_warn_s > 0 else []
+        if not stalled:
+            return
+        oldest_name, oldest_age, oldest_site = stalled[0]
         current = {name for name, _, _ in stalled}
         if (current == self._stall_logged
                 and now - self._stall_last_log < self.stall_warn_s):
@@ -436,16 +561,89 @@ class Coordinator:
         self._log.warning(
             "%d tensor(s) submitted over %.0f s ago have not completed: "
             "ranks may have diverged (some rank never submitted the "
-            "matching op). Oldest: %s (%.0f s%s). Tune via "
+            "matching op). Oldest: %s (%.0f s%s)%s. Tune via "
             "HOROVOD_TPU_STALL_CHECK_TIME.", len(stalled), self.stall_warn_s,
             oldest_name, oldest_age,
-            f", submitted at {oldest_site}" if oldest_site else "")
+            f", submitted at {oldest_site}" if oldest_site else "",
+            wd.describe_missing(oldest_name) if wd is not None else "")
+
+    def _abort_diagnostic(self, stalled, peer_abort):
+        wd = self._watchdog
+        if peer_abort is not None:
+            return (f"coordinated abort joined (initiated by a peer): "
+                    f"{peer_abort}")
+        lines = []
+        for name, age, site in stalled:
+            at = f", submitted at {site}" if site else ""
+            lines.append(f"  {name}: in flight {age:.0f}s{at}"
+                         f"{wd.describe_missing(name)}")
+        return (f"stuck-collective watchdog: {len(stalled)} operation(s) "
+                f"exceeded HVDTPU_COLLECTIVE_TIMEOUT={wd.timeout_s:g}s; "
+                "aborting all in-flight collectives:\n" + "\n".join(lines))
+
+    def _abort_inflight(self, diagnostic):
+        """Coordinated abort: fail every in-flight handle (queued, or held
+        by the backend in negotiation or on the card) with
+        ``CollectiveAbortError`` carrying the diagnostic, and post the
+        abort notice so that peers stop waiting too. The backend's abort
+        raises if it cannot release what it holds (a failed NCCL abort):
+        that failure is the cycle thread's to report, never passed over."""
+        from .exceptions import CollectiveAbortError
+        exc = CollectiveAbortError(diagnostic)
+        self._log.error("%s", diagnostic)
+        self._m_aborts.inc()
+        self._watchdog.post_abort(diagnostic)
+        with self._lock:
+            victims = self._queue
+            self._queue = []
+            self._pending_names.clear()
+        try:
+            self.runtime.backend.watchdog_abort(exc)
+        except Exception as backend_exc:  # noqa: BLE001 - raised below
+            # What the backend could not release may still hold the card:
+            # this runtime runs no further collective, and every caller
+            # from here on gets the failure.
+            self._log.exception("the backend's abort failed")
+            exc = CollectiveAbortError(
+                f"{diagnostic}\nThe backend's abort failed "
+                f"({type(backend_exc).__name__}: {backend_exc}); shut the "
+                "runtime down before the next collective.")
+            self._broken = exc
+        for e in victims:
+            e.handle._fail(exc)
+        self._m_stalled.set(0)
+        self._m_stalled_oldest.set(0.0)
+        self._stall_logged = set()
+
+    def _verify_consistency(self, batch):
+        """Pre-dispatch digest verification (guardian.ConsistencyGuard):
+        a sampled entry compares every rank's published metadata; a
+        divergence (``CollectiveMismatchError``) or a peer that published
+        nothing in time (``CollectiveAbortError``) fails that entry's
+        handle alone, and the rest of the batch dispatches."""
+        from .exceptions import CollectiveAbortError, CollectiveMismatchError
+        ok = []
+        for e in batch:
+            if e.guard_token is None:
+                ok.append(e)
+                continue
+            try:
+                self._guardian.verify(e)
+            except (CollectiveMismatchError, CollectiveAbortError) as exc:
+                self._log.error("%s", exc)
+                self._release_name(e)
+                e.handle._fail(exc)
+                continue
+            ok.append(e)
+        return ok
 
     # -- the Python plane (single-process jobs) ----------------------------
     def _run_cycle(self):
         with self._lock:
             batch = self._queue
             self._queue = []
+        if self._guardian is not None and batch:
+            batch = self._verify_consistency(batch)
         if not batch:
             return
         self._m_queue_depth.set(len(batch))

@@ -36,7 +36,8 @@ import time
 
 from . import basics
 from .exceptions import (PREEMPT_EXIT_CODE, RESTART_EXIT_CODE,
-                         HorovodInternalError, HostsUpdatedInterrupt)
+                         CollectiveAbortError, HorovodInternalError,
+                         HostsUpdatedInterrupt)
 from .telemetry import core as telemetry
 from .utils import envparse
 from .utils.logging_util import get_logger
@@ -385,9 +386,11 @@ def _maybe_restore_persisted(state, log):
 def run_fn(func, reset=_reset):
     """Wrap a training function for elastic execution (reference:
     horovod/common/elastic.py:151 ``run_fn``). The wrapped function takes
-    the State first; on HorovodInternalError the last commit is restored,
-    on HostsUpdatedInterrupt state is kept; both paths reset the runtime
-    and re-sync before retrying."""
+    the State first; on HorovodInternalError (the watchdog's
+    CollectiveAbortError among them) the last commit is restored, on
+    HostsUpdatedInterrupt state is kept; both paths reset the runtime and
+    re-sync before retrying. Program bugs (CollectiveMismatchError,
+    StalledTensorError) propagate."""
     log = get_logger()
 
     @functools.wraps(func)
@@ -405,15 +408,26 @@ def run_fn(func, reset=_reset):
             try:
                 return func(state, *args, **kwargs)
             except HorovodInternalError as e:
-                log.info("elastic: collective failure (%s); restoring "
-                         "last commit", e)
+                aborted = isinstance(e, CollectiveAbortError)
+                if aborted:
+                    # The stuck-collective watchdog aborted the in-flight
+                    # operations (guardian.py); its diagnostic names the
+                    # ranks that never submitted what. The abort becomes a
+                    # restore-and-reset, not a job death.
+                    log.warning("elastic: watchdog abort; restoring last "
+                                "commit and resetting. %s", e)
+                else:
+                    log.info("elastic: collective failure (%s); restoring "
+                             "last commit", e)
                 state.restore()
                 skip_sync = False
                 if preempt_requested():
                     # Counted once, as cause="preempted", inside the
                     # hand-off: the failure causes are disjoint.
                     _graceful_preempt_exit(state, log)
-                _m_failures().labels(cause="internal").inc()
+                _m_failures().labels(
+                    cause="collective_abort" if aborted
+                    else "internal").inc()
                 if _restart_mode():
                     _persist_and_exit(state, log, rereq=True)
             except HostsUpdatedInterrupt as e:

@@ -51,8 +51,42 @@ class DuplicateNameError(ValueError):
     horovod/common/common.h:229 DUPLICATE_NAME_ERROR, tensor_queue.cc)."""
 
 
-class StalledTensorError(HorovodInternalError):
+class StalledTensorError(RuntimeError):
     """A named tensor was submitted by some ranks but not all within the
     stall-shutdown time (reference: horovod/common/stall_inspector.cc:26).
-    A ``HorovodInternalError``, so that elastic recovery catches it like
-    any other failed collective."""
+    A plain ``RuntimeError``, as in the JAX package: a rank that never
+    submits a name is a program bug, which elastic recovery must surface.
+    Turning a stuck collective into a restore-and-reset is the watchdog's
+    ``CollectiveAbortError`` (``HVDTPU_COLLECTIVE_TIMEOUT``)."""
+
+
+class CollectiveAbortError(HorovodInternalError):
+    """The stuck-collective watchdog aborted every in-flight operation
+    after ``HVDTPU_COLLECTIVE_TIMEOUT`` (``guardian.py``; the enforcement
+    analog of the reference's stall inspector, horovod/common/
+    stall_inspector.cc). The message carries the watchdog's diagnostic:
+    which operations stalled and which ranks never submitted them. A
+    ``HorovodInternalError`` on purpose: under elastic training the abort
+    becomes a restore-and-reset instead of a hang or a job death."""
+
+
+class CollectiveMismatchError(RuntimeError):
+    """Ranks submitted the same named collective with divergent metadata
+    (kind, op, dtype, shapes, process set, scale factors, codec, shard),
+    found by the pre-dispatch consistency check
+    (``HVDTPU_CONSISTENCY_CHECK``; ``guardian.py``; the reference
+    controller's message-table mismatch errors, horovod/common/
+    controller.cc). Not a ``HorovodInternalError``: the divergence is a
+    deterministic program bug, which elastic recovery must surface rather
+    than retry. ``divergences`` holds ``(rank, field, theirs, ours)``
+    tuples."""
+
+    def __init__(self, message, divergences=()):
+        super().__init__(message)
+        self.divergences = list(divergences)
+
+
+class CheckpointCorruptError(RuntimeError):
+    """A checkpoint file failed its integrity check (truncated, checksum
+    mismatch, foreign format) and no intact fallback was available
+    (``checkpoint.py``)."""

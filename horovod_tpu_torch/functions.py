@@ -2,30 +2,31 @@
 ``horovod_tpu/functions.py``; reference: horovod/torch/functions.py).
 
 Objects travel as pickled bytes in a uint8 tensor on the runtime's device,
-preceded by their length. Only bytes this program's own ranks pickled are
-ever unpickled.
+preceded by their length, in broadcasts of at most ``OBJECT_CHUNK_BYTES``
+each (a full-width model with its optimizer state pickles to several GB;
+no plane is asked to move 2**31 bytes or more in one collective). Only
+bytes this program's own ranks pickled are ever unpickled.
 """
 
-import io
 import pickle
 
 import torch
 
 from . import basics
-from .ops.collectives import (allgather, broadcast, broadcast_,
-                              broadcast_async_)
+
+#: Largest piece of a pickled object one broadcast moves.
+OBJECT_CHUNK_BYTES = 1 << 30
+from .ops.collectives import allgather, broadcast, broadcast_async_
 from .process_sets import global_process_set
 
 
 def _to_bytes_tensor(obj):
-    buf = io.BytesIO()
-    pickle.dump(obj, buf, protocol=pickle.HIGHEST_PROTOCOL)
-    return torch.frombuffer(bytearray(buf.getvalue()), dtype=torch.uint8).to(
-        basics.device())
+    buf = bytearray(pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL))
+    return torch.frombuffer(buf, dtype=torch.uint8).to(basics.device())
 
 
 def _from_bytes_tensor(t):
-    return pickle.loads(t.cpu().numpy().tobytes())
+    return pickle.loads(memoryview(t.cpu().numpy()))
 
 
 def broadcast_object(obj, root_rank=0, name=None,
@@ -40,10 +41,14 @@ def broadcast_object(obj, root_rank=0, name=None,
                                     device=dev), root_rank,
                        process_set=process_set)
     if basics.rank() != root_rank:
-        payload = torch.zeros(int(length.item()), dtype=torch.uint8,
+        payload = torch.empty(int(length.item()), dtype=torch.uint8,
                               device=dev)
-    return _from_bytes_tensor(broadcast_(payload, root_rank,
-                                         process_set=process_set))
+    handles = [broadcast_async_(payload[i:i + OBJECT_CHUNK_BYTES],
+                                root_rank, process_set=process_set)
+               for i in range(0, payload.numel(), OBJECT_CHUNK_BYTES)]
+    for h in handles:
+        h.wait()
+    return _from_bytes_tensor(payload)
 
 
 def allgather_object(obj, name=None, process_set=global_process_set):

@@ -122,6 +122,61 @@ def reserve_listen_port():
     return port
 
 
+def _tcp_ports_by_inode():
+    """inode -> (local port, remote port) of this network namespace's
+    established TCP sockets (/proc/net/tcp, tcp6)."""
+    out = {}
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            with open(table) as f:
+                rows = f.read().splitlines()[1:]
+        except OSError:
+            continue
+        for row in rows:
+            cols = row.split()
+            if len(cols) < 10 or cols[3] != "01":   # 01: ESTABLISHED
+                continue
+            out[int(cols[9])] = (int(cols[1].rsplit(":", 1)[1], 16),
+                                 int(cols[2].rsplit(":", 1)[1], 16))
+    return out
+
+
+def shutdown_peer_connections(peers, rank):
+    """Shut down this process's TCP connections to the native core's peers
+    (``peers``: the job's ``host:port`` list; a connection to a lower rank
+    was dialled to its port, one from a higher rank was accepted on this
+    rank's port), so that a core blocked receiving from a peer that stopped
+    without closing its sockets (a frozen process) returns with a transport
+    failure. Linux only (/proc). Returns how many it shut down."""
+    import os
+    import socket
+    ports = [int(p.rsplit(":", 1)[1]) for p in peers.split(",")]
+    mine = ports[rank]
+    others = {p for i, p in enumerate(ports) if i != rank}
+    by_inode = _tcp_ports_by_inode()
+    done = 0
+    for name in os.listdir("/proc/self/fd"):
+        try:
+            link = os.readlink(f"/proc/self/fd/{name}")
+        except OSError:
+            continue
+        if not link.startswith("socket:["):
+            continue
+        ports_of = by_inode.get(int(link[8:-1]))
+        if ports_of is None:
+            continue
+        local, remote = ports_of
+        if remote in others or local == mine:
+            dup = os.dup(int(name))
+            with socket.socket(fileno=dup) as sock:
+                try:
+                    sock.shutdown(socket.SHUT_RDWR)
+                    done += 1
+                except OSError:
+                    pass
+    return done
+
+
 class NativeError(RuntimeError):
     pass
 

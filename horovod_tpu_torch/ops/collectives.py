@@ -247,14 +247,17 @@ def grouped_allgather_async(tensors, name=None,
     if not tensors:
         return _empty_group_handle("grouped_allgather")
     entry = TensorEntry(name or _auto_name("grouped_allgather"), "allgather",
-                        [_dense(t) for t in tensors], process_set)
+                        [_dense(t) for t in tensors], process_set,
+                        uneven=True)
     return _submit(entry)
 
 
 def allgather_async(tensor, name=None, process_set=global_process_set):
+    """Concatenation of every member's tensor along dim 0, which may differ
+    between ranks (``uneven``: the consistency digest leaves it out)."""
     _check_set(process_set)
     entry = TensorEntry(name or _auto_name("allgather"), "allgather",
-                        [_dense(tensor)], process_set)
+                        [_dense(tensor)], process_set, uneven=True)
     return then(_submit(entry), lambda r: r[0])
 
 

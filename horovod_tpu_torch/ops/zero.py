@@ -53,7 +53,11 @@ bytes.
   part of the sharded state. A CUDA alltoall is staged through pinned host
   memory by the NCCL plane. At the first step of a multi-rank job a tiny
   reduce-scatter whose width is a digest of the plan (``zero.rs.plan``)
-  makes ranks with different plans fail in the negotiation.
+  makes ranks with different plans fail in the negotiation, when the
+  consistency check is off; with ``HVDTPU_CONSISTENCY_CHECK`` on,
+  :meth:`ZeroRuntime.verify_plan_consistency` compares every rank's leg
+  digests through the guardian's board at ``init_state`` instead and names
+  the divergent rank and field.
 
 Numerics: with no codec the sharded update is bit-identical to the
 replicated update of the same plane for fp32 Sum and Average wherever the
@@ -63,10 +67,19 @@ does, and an elementwise optimizer acts per element. With a codec the
 gathered update is the shard's new value minus its old one, as the inner
 optimizer wrote it (optax returns the update itself).
 
-Not ported: the in-place elastic reshard (``reshard_state``,
-``_shard_reader``). Each process holds only its own shard, so a membership
-change raises and asks for a restore from a checkpoint, as the JAX
-package does on a multi-process mesh.
+**A new world size goes through a checkpoint.** Each process holds only
+its own shard, so the in-place elastic reshard (the JAX package's
+``reshard_state`` and ``_shard_reader``) is not ported: a membership change
+under built state raises :data:`RESHARD_ERROR`. The route instead:
+:meth:`ZeroRuntime.full_state_dict` (``DistributedOptimizer.state_dict()``
+in ZeRO mode, every rank calls it) assembles on rank 0, by named
+allgathers through the coordinator (``zero.ckpt.<slot>.<chunk>``), the
+world-size-independent state the JAX package's ``unshard_moments``
+returns: per state slot, each leaf's moments with the padding stripped,
+plus the scalar slots. ``checkpoint.save_step`` writes rank 0's copy;
+:meth:`ZeroRuntime.load_full_state_dict` places each rank's windows of it
+under a fresh plan at any world size, as ``reshard_state`` does. The
+error-feedback residuals start from zero there (they never cross cohorts).
 """
 
 import inspect
@@ -86,8 +99,14 @@ DEFAULT_ZERO_BUCKET_BYTES = DEFAULT_BUCKET_BYTES
 RESHARD_ERROR = (
     "zero: cannot reshard optimizer state in place — each process holds "
     "only its own state shard, and the elastic membership version moved "
-    "under it. Restore from a checkpoint after the elastic restart "
-    "instead (the in-place reshard is not ported).")
+    "under it (the in-place reshard is not ported). Restore from a "
+    "checkpoint after the elastic restart instead: while the cohort is "
+    "whole, every rank calls "
+    "checkpoint.save_step(directory, step, {'opt': dist_opt.state_dict(), "
+    "...}) (the world-size-independent ZeRO state, assembled on rank 0); "
+    "after the restart, dist_opt.load_state_dict(checkpoint.restore_latest("
+    "directory)[1]['opt']) places each rank's windows under a fresh plan "
+    "at the new world size.")
 
 
 def _m_state_bytes():
@@ -96,6 +115,18 @@ def _m_state_bytes():
         "hvd_zero_state_bytes",
         "Per-replica optimizer-state bytes under ZeRO-1 sharding "
         "(moments + scalars; ~1/n of the replicated footprint)")
+
+
+def _host_tensor(t):
+    """A CPU copy of ``t`` in a dtype numpy has (16-bit floats other than
+    float16 widen exactly to float32)."""
+    if t.dtype in (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2):
+        t = t.to(torch.float32)
+    return t.detach().cpu()
+
+
+def _host(t):
+    return _host_tensor(t).numpy()
 
 
 def dtype_name(dtype):
@@ -493,6 +524,7 @@ class ZeroRuntime:
             return self
         params = self.params()
         plan = self.ensure_plan(params)
+        self.verify_plan_consistency()
         self._flat, self.shards = [], [None] * len(plan.buckets)
         self._views = None
         for ch in self.chunks:
@@ -534,7 +566,8 @@ class ZeroRuntime:
 
     def state_dict(self):
         """This rank's sharded state, keyed by the plan and the rank it
-        belongs to."""
+        belongs to: for the same plan (an elastic commit); a checkpoint
+        takes :meth:`full_state_dict`."""
         self.init_state()
         return {"plan": self.plan.signature(), "rank": self.rank,
                 "inner": self.inner.state_dict(),
@@ -555,6 +588,183 @@ class ZeroRuntime:
                              (self.res_g, state["gather_residuals"])):
             for r, v in zip(mine or (), theirs):
                 r.copy_(v)
+
+    # -- the world-size-independent state (checkpoints) ----------------------
+    def _vector_slots(self):
+        """Names of the inner optimizer's per-element state slots, and its
+        scalar slots with their values (the first bucket's: every bucket
+        steps together)."""
+        first = self.inner.state.get(self.shards[0], {})
+        vectors = sorted(k for k, v in first.items()
+                         if torch.is_tensor(v) and v.dim() >= 1)
+        scalars = {k: (_host(v) if torch.is_tensor(v) else v)
+                   for k, v in first.items() if k not in vectors}
+        return vectors, scalars
+
+    @torch.no_grad()
+    def full_state_dict(self):
+        """The world-size-independent state (collective: every rank calls
+        it). Returns ``{"zero": {...}}`` with the leaf shapes and dtypes,
+        the wrapped optimizer's hyperparameters, ``scalars`` (``step``)
+        and ``slots``: per state slot, each leaf's moments as a flat numpy
+        array, padding stripped (the JAX package's ``unshard_moments``).
+        Each chunk's slot vector is gathered through the coordinator
+        (``zero.ckpt.<slot>.<chunk>``); only rank 0 keeps the moments, the
+        other ranks' ``slots`` is None: ``checkpoint.save`` writes rank
+        0's copy."""
+        from .collectives import allgather_async, synchronize
+        self.init_state()
+        vectors, scalars = self._vector_slots()
+        nleaves = len(self.plan.leaf_shapes)
+        keep = self.rank == 0
+        slots = {slot: [None] * nleaves for slot in vectors} if keep \
+            else None
+        for slot in vectors:
+            for c, ch in enumerate(self.chunks):
+                vec = torch.cat([self.inner.state[self.shards[k]][slot]
+                                 for k in ch.buckets])
+                got = synchronize(allgather_async(
+                    vec, name=f"zero.ckpt.{slot}.{c}"))
+                if not keep:
+                    continue
+                segs = torch.split(_host_tensor(got), ch.segments)
+                for i, (_, where, _) in ch.leaves.items():
+                    slots[slot][i] = torch.cat(
+                        [segs[t] for t in where]).numpy()
+        hyper = {k: v for k, v in self.optimizer.param_groups[0].items()
+                 if k != "params"}
+        return {"zero": {
+            "leaf_shapes": [list(s) for s in self.plan.leaf_shapes],
+            "leaf_dtypes": list(self.plan.leaf_dtypes),
+            "hyper": hyper, "scalars": scalars, "slots": slots}}
+
+    @torch.no_grad()
+    def load_full_state_dict(self, state):
+        """Place this rank's windows of a :meth:`full_state_dict` under the
+        current plan, at this world size (a fresh plan when the elastic
+        version moved since this runtime planned); the error-feedback
+        residuals start from zero."""
+        z = state["zero"]
+        if z["slots"] is None:
+            raise ValueError(
+                "this ZeRO-1 state holds no moments (a rank other than 0 "
+                "built it): restore it with checkpoint.restore, which "
+                "broadcasts rank 0's copy")
+        if self.stale_version():
+            self.plan = self.inner = None
+            self.version = envparse.get_str(envparse.ELASTIC_VERSION, "0")
+        self.inner = None
+        self.init_state()
+        if [list(s) for s in z["leaf_shapes"]] != \
+                [list(s) for s in self.plan.leaf_shapes]:
+            raise ValueError(
+                "ZeRO-1 state was saved for another parameter tree (leaf "
+                f"shapes {z['leaf_shapes']}, this optimizer's "
+                f"{[list(s) for s in self.plan.leaf_shapes]})")
+        for k, v in z["hyper"].items():
+            for group in self.optimizer.param_groups:
+                group[k] = v
+        self._sync_hyperparameters()
+        inner_state = {}
+        for ch in self.chunks:
+            for k, col0 in zip(ch.buckets, ch.cols):
+                sl = self.plan.shards[k].shard_len
+                entry = {}
+                for slot, leaves in z["slots"].items():
+                    vec = torch.zeros(sl, dtype=torch.float32)
+                    for i, at, r, col, length in ch.pieces:
+                        if r == self.rank and col0 <= col < col0 + sl:
+                            vec[col - col0:col - col0 + length] = \
+                                torch.from_numpy(np.ascontiguousarray(
+                                    leaves[i][at:at + length]))
+                    entry[slot] = vec
+                for slot, v in z["scalars"].items():
+                    # A copy per bucket: AdamW counts its step in place.
+                    entry[slot] = torch.tensor(v) \
+                        if isinstance(v, np.ndarray) else v
+                inner_state[k] = entry
+        self.inner.load_state_dict({
+            "state": inner_state,
+            "param_groups": self.inner.state_dict()["param_groups"]})
+        self._checked_state = False
+
+    # -- guardian ------------------------------------------------------------
+    def leg_digests(self, rank):
+        """The guardian's digests of the plan's two legs (the JAX
+        package's): every rank must derive the same padded sizes and shard
+        shapes and hold its own shard index; a rank with another
+        ``HVDTPU_ZERO_BUCKET_BYTES`` would reduce mismatched buffers."""
+        sig = self.plan.signature()
+        codec = None
+        if self.codec is not None:
+            codec = (f"{self.codec.name}@b{self.block}" if self.block
+                     else self.codec.name)
+        common = {
+            "op": reduce_ops.op_name(self.op),
+            "dtype": ",".join(dtype_name(b.dtype)
+                              for b in self.plan.buckets),
+            "shapes": [[b["padded"]] for b in sig["buckets"]],
+            "process_set": 0,
+            "prescale": None if self.prescale is None
+            else float(self.prescale),
+            "postscale": None if self.postscale is None
+            else float(self.postscale),
+            "root_rank": None,
+            "codec": codec,
+            "shard_index": rank,
+            "shard_shape": [[b["shard_len"]] for b in sig["buckets"]],
+        }
+        return {
+            "zero_reduce_scatter": dict(common, kind="zero_reduce_scatter"),
+            "zero_allgather": dict(common, kind="zero_allgather"),
+        }
+
+    def verify_plan_consistency(self, board=None, rank=None, size=None,
+                                timeout_s=None):
+        """Cross-rank plan check through the guardian's board (a launcher
+        job with ``HVDTPU_CONSISTENCY_CHECK`` on; otherwise the
+        ``zero.rs.plan`` probe at the first step is the check): publish
+        this rank's leg digests, compare every peer's. Raises
+        ``CollectiveMismatchError`` naming the divergent rank and field,
+        and ``CollectiveAbortError`` when a peer published none within
+        ``HVDTPU_CONSISTENCY_TIMEOUT``."""
+        from .. import guardian
+        from ..exceptions import CollectiveAbortError
+        if board is None:
+            if envparse.get_int(envparse.CONSISTENCY_CHECK, 0) <= 0:
+                return
+            rt = basics.runtime()
+            if rt.mode != basics.MODE_SPMD or rt.topology.size <= 1:
+                return
+            board = guardian.make_cross_process_board()
+            if board is None:
+                return
+            rank, size = rt.topology.rank, rt.topology.size
+        if timeout_s is None:
+            timeout_s = envparse.get_float(
+                envparse.CONSISTENCY_TIMEOUT,
+                guardian.DEFAULT_CONSISTENCY_TIMEOUT_S)
+        self._probed = True   # the digests replace the probe
+        mine = self.leg_digests(rank)
+        for leg, digest in mine.items():
+            board.put(f"zero.plan.{leg}.{rank}",
+                      guardian.render_digest(digest))
+        for leg, digest in mine.items():
+            theirs, waiting, _ = guardian.wait_digests(
+                board, lambda r, leg=leg: f"zero.plan.{leg}.{r}",
+                set(range(size)) - {rank}, timeout_s)
+            divergences = guardian.compare_digests(digest, theirs)
+            if divergences:
+                raise guardian.mismatch_error(
+                    f"ZeRO-1 {leg} shard plan", divergences, rank,
+                    "Every rank must derive the same pad-and-split plan: "
+                    "check that HVDTPU_ZERO_BUCKET_BYTES and "
+                    "HVDTPU_COMPRESSION agree on all ranks.")
+            if waiting:
+                raise CollectiveAbortError(
+                    f"ZeRO-1 plan check of {leg}: rank(s) "
+                    f"{sorted(waiting)} published no digest within "
+                    f"{timeout_s:.1f}s (HVDTPU_CONSISTENCY_TIMEOUT)")
 
     # -- the sharded update ------------------------------------------------
     def _grads(self, params):

@@ -61,9 +61,17 @@ class TorchState(State):
                 if not k.startswith("_") and k not in skip
                 and isinstance(v, tracked)}
 
+    @staticmethod
+    def _snapshot(value):
+        if getattr(value, "zero", False):
+            # A ZeRO optimizer's own shard (its state_dict() is a
+            # collective for checkpoints).
+            return value.shard_state_dict()
+        return value.state_dict()
+
     def save(self):
         self._saved = {
-            "handlers": {k: copy.deepcopy(v.state_dict())
+            "handlers": {k: copy.deepcopy(self._snapshot(v))
                          for k, v in self._handlers.items()},
             "scalars": copy.deepcopy(self._scalar_state()),
         }
@@ -118,7 +126,10 @@ def _check_zero_unmoved(dist_opt):
     """A ZeRO optimizer's state is sharded: each rank holds its own shard,
     so rank 0's is not broadcast. Once the membership version moved under
     built state, the shards no longer fit the cohort, and the in-place
-    reshard is not ported: raise, as its next step would."""
+    reshard is not ported: raise, as its next step would. The route to a
+    new world size is a checkpoint of ``dist_opt.state_dict()`` (the
+    world-size-independent state) loaded back with ``load_state_dict``
+    (``ops/zero.py`` ``RESHARD_ERROR`` says how)."""
     from ..ops import zero as zero_ops
     rt = dist_opt._zero_rt
     if rt.inner is not None and rt.stale_version():

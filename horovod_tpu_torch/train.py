@@ -48,7 +48,8 @@ class DistributedOptimizer:
         slices allgather back into the parameters. None reads
         ``HVDTPU_ZERO``. Average/Sum only; Adasum, a process set other than
         the global one and ``backward_passes_per_step > 1`` raise here.
-        ``state_dict()`` is then this rank's shard of the state.
+        ``state_dict()`` is then the world-size-independent state (a
+        collective) and ``shard_state_dict()`` this rank's shard.
 
     In a launcher job the dense gradients are reduced after backward by one
     grouped allreduce named ``grad`` through the coordinator, whose native
@@ -160,15 +161,31 @@ class DistributedOptimizer:
         return self._zero_rt.update()
 
     def state_dict(self):
-        """This rank's shard of the state in ZeRO mode, else the wrapped
-        optimizer's state."""
+        """The wrapped optimizer's state; in ZeRO mode the world-size-
+        independent state (``ZeroRuntime.full_state_dict``: a collective,
+        every rank calls it, and rank 0's copy holds the moments), which
+        ``checkpoint.save_step`` writes and ``load_state_dict`` places at
+        any world size."""
         if self.zero:
-            return self._zero_rt.state_dict()
+            return self._zero_rt.full_state_dict()
         return self.inner.state_dict()
 
+    def shard_state_dict(self):
+        """ZeRO mode: this rank's shard of the state, keyed by the plan and
+        the rank (no collective; an elastic commit takes it)."""
+        if not self.zero:
+            raise RuntimeError("shard_state_dict() is the ZeRO mode's")
+        return self._zero_rt.state_dict()
+
     def load_state_dict(self, state):
+        """Either form of ``state_dict()``: in ZeRO mode a
+        ``shard_state_dict`` of the same plan and rank, or a
+        world-size-independent state (``{"zero": ...}``)."""
         if self.zero:
-            self._zero_rt.load_state_dict(state)
+            if "zero" in state:
+                self._zero_rt.load_full_state_dict(state)
+            else:
+                self._zero_rt.load_state_dict(state)
         else:
             self.inner.load_state_dict(state)
 
@@ -330,6 +347,6 @@ def make_zero_train_step(loss_fn, dist_opt):
 
     def init_state():
         zopt.init()
-        return zopt.state_dict()
+        return zopt.shard_state_dict()
 
     return make_train_step(loss_fn, zopt), init_state

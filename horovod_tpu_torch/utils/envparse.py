@@ -173,6 +173,21 @@ SIGKILL_DEADLINE = register(
     "SIGKILL_DEADLINE", "10",
     "Driver: seconds between SIGTERM and SIGKILL on worker stop")
 
+# -- fault tolerance (guardian.py, checkpoint.py) ------------------------------
+CONSISTENCY_CHECK = register(
+    "CONSISTENCY_CHECK", "0",
+    "Data-plane guardian: cross-rank metadata digest check "
+    "(0 off, 1 every named collective, N>1 sampled)")
+CONSISTENCY_TIMEOUT = register(
+    "CONSISTENCY_TIMEOUT", "10",
+    "Seconds the pre-dispatch check waits for peer digests")
+COLLECTIVE_TIMEOUT = register(
+    "COLLECTIVE_TIMEOUT", "0",
+    "Stuck-collective watchdog: coordinated abort past this age; 0 off")
+CHECKPOINT_KEEP = register(
+    "CHECKPOINT_KEEP", "0",
+    "Keep only the newest N step_<N> checkpoints; 0 keeps everything")
+
 # -- gradient compression (compression/) -------------------------------------
 COMPRESSION = register(
     "COMPRESSION", "",
@@ -187,7 +202,7 @@ COMPRESSION_BLOCK = register(
 COMPRESSION_ERROR_FEEDBACK = register(
     "COMPRESSION_ERROR_FEEDBACK", "1",
     "Carry per-tensor quantization error into the next step's "
-    "gradient (the Python and tcp-native planes; not the delegated one)")
+    "gradient (every plane; per tensor name and elastic version)")
 
 # -- sparse/embedding gradients (ops/sparse.py) --------------------------------
 SPARSE = register(

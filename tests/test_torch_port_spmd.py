@@ -18,9 +18,10 @@ The ``reduce`` jobs drive the gradient-reduction options on both planes
 and hold them to the JAX package's job of the same inputs and to numpy:
 tcp-native int8/fp8 with error feedback over two steps (equal to the JAX
 package's within 1e-6 absolute: the same bytes on the wire, float32 sums
-in another order), the delegated plane's catch-all int8 (equal to
-``quantized_allreduce_plain`` of the stacked inputs within one
-quantization step of each block), Adasum at 2 ranks single and grouped
+in another order), the delegated plane's catch-all int8 on a tensor with
+no per-call codec and its per-call int8/fp8 with error feedback (each
+equal to ``quantized_allreduce_plain`` of the stacked inputs, plus step 1's
+residuals, within one quantization step of each block), Adasum at 2 ranks single and grouped
 (the float64 VHDD oracle within 1e-5 relative; the JAX package's within
 1e-6) and its 3-rank reject, sparse gathers with ragged row counts
 (the dense sum within 1e-6; int8 rows within one step of each row), and
@@ -280,27 +281,48 @@ def test_tcp_quantized_allreduce_with_error_feedback_equals_the_jax_package(
             assert np.all(err <= 3 * size * blockmax * rel + 1e-7)
 
 
-def check_catch_all(got, size, wire):
-    """Every rank's q_* results (both per-call markers ignored) equal
-    ``quantized_allreduce_plain`` of the stacked inputs with the catch-all
-    codec ``wire``, within one quantization step of each block."""
+def _codec_residual(codec, flat, size):
+    """(g + e) - dq(q(g + e)) of one rank's flat float32 input, blocks laid
+    as the delegated pipeline lays them (padded to size * 256)."""
     import torch
     from horovod_tpu_torch.compression import codecs
-    qmax = codecs.get_codec(wire).qmax
-    for codec in ("int8", "fp8"):
+    c = codecs.get_codec(codec)
+    padded = codecs.padded_len(flat.size, size, 256)
+    x = torch.from_numpy(np.pad(flat, (0, padded - flat.size))).view(size,
+                                                                     -1)
+    q, s = c.encode(x, 256)
+    return (x - c.decode(q, s, 256)).reshape(-1)[:flat.size].numpy()
+
+
+def check_catch_all(got, size, wire):
+    """Every rank's ``q_plain_*`` results (no per-call codec) equal
+    ``quantized_allreduce_plain`` of the stacked inputs with the catch-all
+    codec ``wire``, and the ``q_int8_*``/``q_fp8_*`` results (per-call
+    codecs, honoured by the delegated plane with error feedback) that of
+    their own codec on the inputs plus each rank's residual of step 0:
+    within one quantization step of each block."""
+    import torch
+    from horovod_tpu_torch.compression import codecs
+    runs = [("plain", wire, False), ("int8", "int8", True),
+            ("fp8", "fp8", True)]
+    for tag, codec, feedback in runs:
+        qmax = codecs.get_codec(codec).qmax
+        res = [np.zeros_like(q_value(k, 0, tag)) for k in range(size)]
         for step in (0, 1):
-            stacked = torch.from_numpy(np.stack(
-                [q_value(k, step, codec) for k in range(size)]))
+            ins = [q_value(k, step, tag) + res[k] for k in range(size)]
             want = codecs.quantized_allreduce_plain(
-                stacked, wire, 256, average=False).numpy()
+                torch.from_numpy(np.stack(ins)), codec, 256,
+                average=False).numpy()
+            if feedback:
+                res = [_codec_residual(codec, x, size) for x in ins]
             padded = codecs.padded_len(want.size, size, 256)
             step_of = np.repeat(
                 np.abs(np.pad(want, (0, padded - want.size))).reshape(
                     -1, 256).max(1) / qmax, 256)[:want.size]
-            if wire == "fp8":
+            if codec == "fp8":
                 step_of = np.maximum(step_of, np.abs(want) / 8)
             for r in range(size):
-                key = f"q_{codec}_{step}"
+                key = f"q_{tag}_{step}"
                 assert np.all(np.abs(got[r][key] - want) <= step_of + 1e-7)
 
 
@@ -329,8 +351,10 @@ def dense_sparse_sum(size):
 @pytest.mark.parametrize("size", SIZES)
 def test_delegated_catch_all_int8_equals_the_plain_pipeline(jobs, size):
     check_catch_all(_reduce_results(jobs, "gloo", size), size, "int8")
-    assert "ignored on the delegated plane" in \
-        jobs["reduce", "gloo", size]["logs"][0]
+    # The per-call codecs ran with error feedback on the delegated plane.
+    res = jobs["reduce", "gloo", size]["res"]
+    for r in range(size):
+        assert res[r]["residual_names"] == ["q.fp8", "q.int8"]
 
 
 @pytest.mark.parametrize("plane", PLANES)

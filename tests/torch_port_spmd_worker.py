@@ -156,8 +156,9 @@ Q_N = 2000          # over the 1024-element threshold; a ragged last block
 SP_ROWS, SP_W = 40, 6
 REDUCE_ENV = {       # both jobs of the tcp plane, and the JAX package's
     "tcp": {"HVDTPU_SPARSE": "gather", "HVDTPU_COMPRESSION": "spq.*=int8"},
-    # The delegated plane applies the catch-all wire rule only.
-    # Sparse names stay exact (a catch-all would row-quantize them).
+    # The delegated plane: per-call codecs, and the catch-all wire rule for
+    # the rest. Sparse names stay exact (a catch-all would row-quantize
+    # them).
     "gloo": {"HVDTPU_SPARSE": "gather",
              "HVDTPU_COMPRESSION": "sp*=none;grad.sp*=none;int8"},
 }
@@ -193,6 +194,12 @@ def reduce_checks(hvd, ht, rank, size, out_dir):
             res[f"q_{codec}_{step}"] = ht.allreduce(
                 x, name=f"q.{codec}", op=ht.Sum,
                 compression=getattr(ht.Compression, codec)).cpu().numpy()
+    for step in (0, 1):
+        # No per-call codec: the env policy decides (the delegated plane's
+        # catch-all rule).
+        x = torch.from_numpy(q_value(rank, step, "plain")).to(DEV)
+        res[f"q_plain_{step}"] = ht.allreduce(
+            x, name="q.plain", op=ht.Sum).cpu().numpy()
     plane = basics.runtime().coordinator._compression
     out["residual_names"] = sorted(
         n for n in ("q.int8", "q.fp8") if plane.residuals.get(n) is not None)
@@ -273,7 +280,7 @@ def stall_checks(hvd, rank, size, out_dir):
         try:
             hvd.allreduce(torch.ones(8), name="lonely")
             out["stall_error"] = "no error"
-        except hvd.HorovodInternalError as e:
+        except hvd.StalledTensorError as e:
             out["stall_error"] = f"{type(e).__name__}: {e}"
         open(sync, "w").close()
     else:
