@@ -88,6 +88,24 @@ paths at full width:
   and final parameters (equal). It prints the file's bytes, the save and
   restore seconds and GB/s, and the step beside [zero]'s.
 
+- ``[parallel]``: the parallel strategies (``horovod_tpu_torch/parallel/``).
+  Ring attention's per-rank schedule at 4 ranks over a global sequence of
+  32768 (B 1, H 16, D 64, bf16, causal: the TransformerLM's heads), the 16
+  ``flash_attention(..., with_lse=True, q_offset, k_offset)`` calls made
+  and merged by the port's own ring loop (``_ring_local``, its rotation
+  done by slicing), forward and backward against one flash call
+  over the whole sequence (fully-future chunks: O = 0, LSE = -1e30, zero
+  gradients), then at 4096 in float32 against dense attention; the
+  LSE-mode kernels against their plain versions at the ring's chunk
+  shapes (past, diagonal, future; an LSE cotangent in delta), timed beside
+  SDPA; and a one-rank launcher job (``--parallel-child``) whose axis is
+  the NCCL world group: ``ring_attention`` and ``ulysses_attention``
+  against ``flash_attention``, ``moe_apply`` (d_model 1024, d_ff 4096, 8
+  experts, 4096 tokens) against the call without an axis, and
+  ``pipeline_apply`` over the full TransformerLM (4 stages of 6 blocks,
+  ``rounds=4``, 8 microbatches of 1 x 512) against the model's own step:
+  3 SGD steps' losses and the first step's gradients.
+
 For each path it times 10 more steps on the host (enqueue time, step time,
 calls that made the host wait for the device) and profiles one by kernel
 family. Prints one JSON line of per-kernel numbers, the card's name and
@@ -142,6 +160,12 @@ KERNELS = {
     f"{k}{m}": (_TPU_KERNEL[k], _SDPA[k] + (" with dropout_p=0.1" if m
                                              else ""), _SOURCE[k])
     for m in ("", "_mask", "_philox") for k in _TPU_KERNEL}
+# The no-dropout kernels in ring attention's LSE mode (with_lse=True,
+# offsets, an LSE cotangent), timed at a past chunk of the ring.
+KERNELS.update({
+    f"{k}_lse": (_TPU_KERNEL[k], _SDPA[k].replace("sdpa flash", "sdpa flash "
+                                                  "non-causal"), _SOURCE[k])
+    for k in _TPU_KERNEL})
 BERT = dict(vocab_size=30522, hidden_size=1024, num_hidden_layers=24,
             num_attention_heads=16, intermediate_size=4096,
             max_position_embeddings=512)   # BASELINE config #3, bench.py
@@ -2793,6 +2817,565 @@ def ckpt_child(out_path, tmp, part):
         json.dump(res, f)
 
 
+# [parallel]: the parallel strategies of horovod_tpu_torch/parallel/ on the
+# card. Ring attention's per-rank schedule at the TransformerLM's widths,
+# emulated on one card, through the flash kernels' LSE mode (offsets, an LSE
+# output, an LSE cotangent in the backward); the LSE-mode kernels against
+# their plain versions at the ring's chunk shapes; and a one-rank launcher
+# job that runs the four strategies through the NCCL group.
+PAR_HEADS, PAR_D = 16, 64
+PAR_SEQ, PAR_RANKS = 32768, 4     # the ring's global sequence and ranks
+PAR_FP32_SEQ = 4096
+# The ring against one call over the whole sequence (bf16): each chunk's O
+# and each call's dQ, dK, dV round to bf16 once before an fp32 merge or sum
+# of at most n partials, where the whole-sequence call rounds once: up to
+# four ulps (2^-5 relative); atol covers elements near zero; the Frobenius
+# limit catches a chunk lost or counted twice. float32 against the dense
+# reference: the kernels' own limits (fwd 2e-5, gradients 5e-4).
+RING_TOL = {"bfloat16": ((2e-2, 2 ** -5, 1e-2), (2e-2, 2 ** -5, 1e-2)),
+            "float32": ((2e-5, 2e-5, 1e-5), (5e-4, 5e-4, 1e-4))}
+# The pipeline against the model's own step (bf16 compute, fp32 logits and
+# parameters): the same operations on microbatches of 1 x 512 instead of
+# one batch of 8, so cuBLAS may sum the bf16 products in another order and
+# round an activation the other way. A microbatch or a stage lost moves
+# the loss by percent and a gradient's Frobenius norm by 0.1 or more.
+PIPE_M, PIPE_STAGES = 8, 4        # microbatches of 1 x 512; rounds=4 at n=1
+PIPE_STEPS, PIPE_LR = 3, 1e-2     # SGD steps on both parameter sets
+PIPE_LOSS_RTOL = 1e-3
+PIPE_GRAD_FRO = 2e-2
+PAR_MOE = dict(tokens=4096, d=1024, f=4096, e=8, k=2, capacity_factor=1.25)
+PAR_LM = dict(vocab_size=30522, hidden=1024, layers=24, heads=16,
+              max_len=512)                # the TransformerLM, full depth
+PAR_REPS = 5
+
+
+def ring_schedule(fa, ring_local, q, k, v, n, causal=True):
+    """Ring attention's per-rank schedule at ``n`` ranks on one device: for
+    each rank r, the port's own loop (``ring_local``, the ``_ring_local`` of
+    ``parallel/ring_attention.py``, which merges by ``_merge`` in fp32)
+    with the rotation done by slicing (each step brings the chunk pair that
+    rank r-1 held, as the ring's ppermute does) and
+    every kernel call ``flash_attention(q_r, k, v, q_offset, k_offset,
+    with_lse=True)`` on leaves of its own, so that its gradients can be
+    read. Returns the (B, H, S, D) output and the calls (dicts of r, the
+    chunk src it was given, the leaves q, k, v and the outputs o, lse)."""
+    s = q.shape[2] // n
+
+    def chunk(x, i):
+        return x[:, :, i * s:(i + 1) * s]
+
+    def leaf(x):
+        return x.detach().clone().requires_grad_()
+    outs, calls = [], []
+    for r in range(n):
+        held = [r]
+
+        def rotate(kv):
+            j = (held[0] - 1) % n
+
+            def arrive():
+                held[0] = j
+                return chunk(k, j), chunk(v, j)
+            return arrive
+
+        def attend(qc, kc, vc, q_offset, k_offset):
+            c = dict(r=r, src=held[0], q=leaf(qc), k=leaf(kc), v=leaf(vc))
+            c["o"], c["lse"] = fa.flash_attention(
+                c["q"], c["k"], c["v"], causal=causal, q_offset=q_offset,
+                k_offset=k_offset, with_lse=True)
+            calls.append(c)
+            return c["o"], c["lse"]
+        o = ring_local(chunk(q, r), (chunk(k, r), chunk(v, r)), r, n,
+                       rotate, attend)
+        outs.append(o.to(q.dtype))
+    return torch.cat(outs, dim=2), calls
+
+
+def ring_grads(calls, shape, n):
+    """The schedule's dQ, dK, dV by chunk: each call's leaf gradients summed
+    in fp32 into the chunk the leaf was cut from."""
+    s = shape[2] // n
+    sums = [torch.zeros(shape, device=calls[0]["q"].device)
+            for _ in range(3)]
+    for c in calls:
+        for total, name, at in zip(sums, "qkv", (c["r"], c["src"],
+                                                 c["src"])):
+            total[:, :, at * s:(at + 1) * s] += c[name].grad.float()
+    return sums
+
+
+def ring_check(fa, ring_local, dtype, seq, witness, label):
+    """The schedule at 4 ranks over a global ``seq`` against ``witness``
+    (``"flash"``: one kernel call over the whole sequence; ``"dense"``:
+    ``reference_attention``), forward and backward; a fully-future call
+    must give O = 0 and LSE = -1e30 and exactly zero gradients. Returns the
+    max abs errors and the LSE-mode launches."""
+    n = PAR_RANKS
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    shape = (1, PAR_HEADS, seq, PAR_D)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4))
+    fa.reset_launches()
+    out, calls = ring_schedule(fa, ring_local, q, k, v, n)
+    out.backward(do)
+    torch.cuda.synchronize()
+    lse_launches = {name: fa.LAUNCHES[name]
+                    for name in ("fwd", "bwd_dkv", "bwd_dq")}
+    got = [out] + ring_grads(calls, shape, n)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    if witness == "flash":
+        o = fa.flash_attention(*leaves, causal=True)
+    else:
+        o = fa.reference_attention(*leaves, causal=True)
+    want = [o] + list(torch.autograd.grad(o, leaves, do))
+    fwd_tol, grad_tol = RING_TOL[str(dtype).removeprefix("torch.")]
+    log(f"[parallel] {label}: the ring's schedule at {n} ranks, B 1, H "
+        f"{PAR_HEADS}, S {seq} ({seq // n} per rank), D {PAR_D}, {dtype}, "
+        f"causal: {len(calls)} LSE-mode calls, launches {lse_launches}, "
+        f"against {witness} attention over the whole sequence")
+    errs = {}
+    for name, g, w, tol in zip(("O", "dQ", "dK", "dV"), got, want,
+                               (fwd_tol,) + (grad_tol,) * 3):
+        errs[name] = compare(f"ring {name}", g, w, tol)
+    future = [c for c in calls if c["src"] > c["r"]]
+    for c in future:
+        if not (c["o"].float().abs().max().item() == 0.0
+                and bool((c["lse"] == fa.NEG_INF).all())):
+            fail(f"[parallel] {label}: the fully-future call (rank "
+                 f"{c['r']}, chunk {c['src']}) is not O = 0, LSE = -1e30")
+        if any(c[x].grad.float().abs().max().item() != 0.0 for x in "qkv"):
+            fail(f"[parallel] {label}: the fully-future call (rank "
+                 f"{c['r']}, chunk {c['src']}) has nonzero gradients")
+    log(f"  {len(future)} fully-future calls: O = 0, LSE = -1e30, dQ = dK = "
+        "dV = 0 exactly")
+    want_launches = dict.fromkeys(("fwd", "bwd_dkv", "bwd_dq"), n * n)
+    if lse_launches != want_launches:
+        fail(f"[parallel] {label}: expected {n * n} LSE-mode launches of "
+             f"each kernel, got {lse_launches}")
+    return errs, lse_launches
+
+
+# The LSE mode at the ring's chunk shapes: (q_offset, k_offset, kv_len)
+# of a past chunk (every key visible), the diagonal chunk and a
+# fully-future one (every tile skipped), rank 1 of 4 at S 32768.
+LSE_CHUNKS = {"past": (8192, 0, 8192), "diagonal": (8192, 8192, 8192),
+              "future": (8192, 16384, 8192)}
+
+
+def lse_kernel_rows(fa, flush_buf):
+    """Each kernel in the LSE mode against its plain version at the ring's
+    chunk shapes, (B*H, S, D) = (16, 8192, 64) bf16, with an LSE cotangent
+    in delta; times beside the bound and SDPA's flash call (non-causal on a
+    past chunk, causal on the diagonal one). Returns the rows of the
+    ``kernels`` line: the past chunk's numbers, the diagonal's under
+    ``diagonal``."""
+    bh, s, d = PAR_HEADS, PAR_SEQ // PAR_RANKS, PAR_D
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tol = KERNEL_TOL["bfloat16"]
+    scale = 1.0 / math.sqrt(d)
+    rows = {}
+    for kind, lens in LSE_CHUNKS.items():
+        q, k, v, do = (torch.randn(bh, s, d, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        g_lse = torch.randn(bh, s, generator=gen, device="cuda")
+        args = (q, k, v, lens, scale, True)
+        log(f"[parallel] LSE mode, {kind} chunk: bh={bh} s={s} d={d} bf16 "
+            f"causal (q_off, k_off, kv_len)={lens}, g_lse ~ N(0, 1)")
+        o, lse = fa.attention_fwd(*args)
+        o_ref, lse_ref = fa.attention_fwd_plain(*args)
+        delta = ((do.float() * o_ref.float()).sum(-1) - g_lse).contiguous()
+        bargs = (q, k, v, do, lse_ref, delta, lens, scale, True)
+        dk, dv = fa.attention_bwd_dkv(*bargs)
+        dk_ref, dv_ref = fa.attention_bwd_dkv_plain(*bargs)
+        dq = fa.attention_bwd_dq(*bargs)
+        dq_ref = fa.attention_bwd_dq_plain(*bargs)
+        torch.cuda.synchronize()
+        errs = {"fwd": compare("fwd O", o, o_ref, tol)}
+        seen = lse_ref > fa.NEG_INF / 2
+        if bool(seen.any()):
+            compare("fwd LSE", lse[seen], lse_ref[seen], (1e-4, 1e-5, 1e-5))
+        errs["bwd_dkv"] = max(compare("bwd_dkv dK", dk, dk_ref, tol),
+                              compare("bwd_dkv dV", dv, dv_ref, tol))
+        errs["bwd_dq"] = compare("bwd_dq dQ", dq, dq_ref, tol)
+        if kind == "future":
+            if not (o.float().abs().max().item() == 0.0
+                    and bool((lse == fa.NEG_INF).all())
+                    and all(x.float().abs().max().item() == 0.0
+                            for x in (dk, dv, dq))):
+                fail("[parallel] the fully-future chunk's kernels did not "
+                     "give O = 0, LSE = -1e30 and zero gradients")
+            log("  fully-future chunk: O = 0, LSE = -1e30, dK = dV = dQ = "
+                "0 exactly")
+        pairs = visible_pairs(s, s, *lens, True)
+        lib = library_times(q, k, v, do, flush_buf, kind == "diagonal",
+                            0.0) if kind != "future" else dict.fromkeys(errs)
+        kern = {"fwd": lambda: fa.attention_fwd(*args),
+                "bwd_dkv": lambda: fa.attention_bwd_dkv(*bargs),
+                "bwd_dq": lambda: fa.attention_bwd_dq(*bargs)}
+        plain = {"fwd": lambda: fa.attention_fwd_plain(*args),
+                 "bwd_dkv": lambda: fa.attention_bwd_dkv_plain(*bargs),
+                 "bwd_dq": lambda: fa.attention_bwd_dq_plain(*bargs)}
+        for base in ("fwd", "bwd_dkv", "bwd_dq"):
+            b_ms, b_by = bound(base, bh, s, s, d, pairs, 2)
+            r = {"max_abs_err": errs[base],
+                 "ms": time_ms(kern[base], 20, flush_buf),
+                 "plain_ms": (time_ms(plain[base], 1, flush_buf)
+                              if kind != "future" else None),
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": lib[base]}
+            plain_s = "-" if r["plain_ms"] is None else \
+                f"{r['plain_ms']:.1f}"
+            lib_s = "-" if r["library_ms"] is None else \
+                f"{r['library_ms']:.4f}"
+            sdpa = "causal" if kind == "diagonal" else "non-causal"
+            log(f"  {base + '_lse':<14} kernel {r['ms']:.4f} ms | plain "
+                f"{plain_s} ms | bound {b_ms:.4f} ms ({b_by}, {pairs} "
+                f"pairs) | sdpa {sdpa} {lib_s} ms")
+            name = base + "_lse"
+            if kind == "past":
+                rows[name] = r
+            else:
+                rows[name][kind] = r
+    return rows
+
+
+def parallel_verdict(res):
+    """The checks of the ``[parallel]`` child's results (its tensors it
+    holds to their witnesses itself, with ``compare``): the failures, none
+    when every check holds."""
+    bad = []
+    pipe = res["pipeline"]
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(pipe["losses"], pipe["model_losses"])) \
+        if len(pipe["losses"]) == len(pipe["model_losses"]) == PIPE_STEPS \
+        else float("inf")
+    if not rel <= PIPE_LOSS_RTOL:
+        bad.append(f"pipeline losses {pipe['losses']} against the model's "
+                   f"{pipe['model_losses']} (relative {rel:.2e})")
+    worst = max(pipe["grad_fro"].values()) if pipe["grad_fro"] else \
+        float("inf")
+    if not worst <= PIPE_GRAD_FRO:
+        bad.append(f"pipeline gradients: relative Frobenius error "
+                   f"{worst:.2e} (limit {PIPE_GRAD_FRO:g})")
+    if not all(math.isfinite(x) for x in pipe["losses"]):
+        bad.append(f"pipeline losses not finite: {pipe['losses']}")
+    if res["backend"] != "nccl":
+        bad.append(f"the axis was a {res['backend']} group, not NCCL")
+    return bad
+
+
+def parallel_phase(fa, flush_buf):
+    """Drive ``horovod_tpu_torch/parallel/`` on the card: the ring's
+    schedule at full width through the LSE-mode kernels (bf16 against one
+    call over the whole sequence, then float32 against dense attention),
+    the LSE-mode kernels against their plain versions at the chunk shapes,
+    then a one-rank launcher job (``--parallel-child``) through the NCCL
+    group. Returns the LSE-mode launches of the main path (the bf16
+    schedule and the child's ring) and the kernel rows."""
+    import tempfile
+    from horovod_tpu_torch.parallel.ring_attention import _ring_local
+    torch.cuda.empty_cache()
+    _, lse_launches = ring_check(fa, _ring_local, torch.bfloat16, PAR_SEQ,
+                                 "flash", "ring bf16")
+    ring_check(fa, _ring_local, torch.float32, PAR_FP32_SEQ, "dense",
+               "ring float32")
+    torch.cuda.empty_cache()
+    rows = lse_kernel_rows(fa, flush_buf)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="hvd-parallel-") as tmp:
+        out = os.path.join(tmp, "parallel.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--parallel-child",
+             out], env=_one_rank_env(), timeout=900)
+        if proc.returncode != 0:
+            fail(f"[parallel] the one-rank launcher job exited "
+                 f"{proc.returncode}")
+        with open(out) as f:
+            res = json.load(f)
+    pipe = res["pipeline"]
+    log(f"[parallel] one-rank job over the {res['backend']} group: ring "
+        f"{res['ring']['ms']:.2f} ms, Ulysses {res['ulysses']['ms']:.2f} ms "
+        f"(all_to_all {res['ulysses']['a2a_bytes'] / 2 ** 20:.1f} MiB in "
+        f"{res['ulysses']['a2a_ms']:.3f} ms), flash alone "
+        f"{res['ring']['flash_ms']:.2f} ms (fwd + bwd, S "
+        f"{PAR_SEQ // PAR_RANKS}); _prepare of a q view "
+        f"({res['ring']['prepare_bytes'] / 2 ** 20:.0f} MiB) "
+        f"{res['ring']['prepare_ms']:.3f} ms per call, of a contiguous q "
+        f"{res['ring']['prepare_contiguous_ms']:.3f} ms; MoE "
+        f"{res['moe']['ms']:.2f} ms against "
+        f"{res['moe']['single_ms']:.2f} ms without the axis (all_to_all "
+        f"{res['moe']['a2a_bytes'] / 2 ** 20:.1f} MiB in "
+        f"{res['moe']['a2a_ms']:.3f} ms)")
+    log(f"[parallel] pipeline, TransformerLM {PAR_LM['layers']} layers, "
+        f"{PIPE_STAGES} stages of {PAR_LM['layers'] // PIPE_STAGES} blocks "
+        f"(rounds={PIPE_STAGES}), "
+        f"{PIPE_M} microbatches of 1 x 512: losses {pipe['losses']} against "
+        f"the model's own step {pipe['model_losses']}; gradients' relative "
+        f"Frobenius error: worst {max(pipe['grad_fro'].values()):.2e} "
+        f"({max(pipe['grad_fro'], key=pipe['grad_fro'].get)}); step "
+        f"{pipe['ms']:.1f} ms against the model's {pipe['model_ms']:.1f} ms;"
+        f" peak memory {pipe['peak_gib']:.2f} GiB")
+    bad = parallel_verdict(res)
+    if bad:
+        fail("[parallel] " + "; ".join(bad))
+    launches = {f"{k}_lse": lse_launches[k] + res["lse_launches"].get(k, 0)
+                for k in lse_launches}
+    return launches, rows
+
+
+def _median_ms(fn, reps=PAR_REPS):
+    """Median host ms of ``fn`` from an idle device to its end."""
+    times = []
+    fn()
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return _median(times)
+
+
+def _attention_child(fa, parallel, world):
+    """Ring and Ulysses at one rank's chunk (B 1, H 16, S 8192, D 64, bf16,
+    causal) through the NCCL group, forward and backward, against
+    ``flash_attention`` on the same inputs. The ring's LSE-mode launches
+    are those of its checked run."""
+    shape = (1, PAR_HEADS, PAR_SEQ // PAR_RANKS, PAR_D)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    tol = KERNEL_TOL["bfloat16"]
+
+    def run(fn):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        o = fn(*leaves)
+        return [o] + list(torch.autograd.grad(o, leaves, do))
+    want = run(lambda *a: fa.flash_attention(*a, causal=True))
+    flash_ms = _median_ms(lambda: run(
+        lambda *a: fa.flash_attention(*a, causal=True)))
+    out = {}
+    for key, fn in (("ring", parallel.ring_attention),
+                    ("ulysses", parallel.ulysses_attention)):
+        fa.reset_launches()
+        got = run(lambda *a: fn(*a, world, causal=True))
+        launches = {n: c for n, c in fa.LAUNCHES.items() if c}
+        log(f"[parallel child] {key} over the NCCL group, S {shape[2]}: "
+            f"launches {launches}")
+        for name, g, w in zip(("O", "dQ", "dK", "dV"), got, want):
+            compare(f"{key} {name}", g, w, tol)
+        out[key] = {"launches": launches, "ms": _median_ms(
+            lambda: run(lambda *a: fn(*a, world, causal=True)))}
+    out["ring"]["flash_ms"] = flash_ms
+    # What flash_attention's _prepare costs a ring step: each of the n
+    # calls copies a q that is a view (a sequence slice of a longer
+    # tensor) into the kernels' (B*H, S, D) layout; a contiguous q is
+    # taken as it is.
+    view = torch.cat((q, q), dim=2)[:, :, :shape[2]]
+    out["ring"]["prepare_bytes"] = q.numel() * q.element_size()
+    out["ring"]["prepare_ms"] = _median_ms(lambda: fa._prepare(view, k, v))
+    out["ring"]["prepare_contiguous_ms"] = _median_ms(
+        lambda: fa._prepare(q, k, v))
+    # The stacked q, k, v all_to_all; a step also moves O's, and both again
+    # in the backward.
+    stacked = torch.stack((q, k, v))
+    out["ulysses"]["a2a_bytes"] = stacked.numel() * stacked.element_size()
+    out["ulysses"]["a2a_ms"] = _median_ms(
+        lambda: parallel.axis.all_to_all(stacked, world, 2, 3))
+    return out
+
+
+def _moe_child(parallel, world):
+    """``moe_apply`` at d_model 1024, d_ff 4096, 8 experts, k 2, capacity
+    1.25, 4096 tokens (bf16 tokens, fp32 weights) through the NCCL group
+    against the same call without an axis, forward and the gradients of
+    every weight."""
+    from horovod_tpu_torch.parallel import axis as pax
+    c = PAR_MOE
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(c["tokens"], c["d"], generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    ws = [torch.randn(shape, generator=gen, device="cuda")
+          * shape[-2] ** -0.5
+          for shape in ((c["d"], c["e"]), (c["e"], c["d"], c["f"]),
+                        (c["e"], c["f"], c["d"]))]
+    kw = dict(k=c["k"], capacity_factor=c["capacity_factor"])
+
+    def run(ep):
+        leaves = [w.detach().requires_grad_() for w in ws]
+        if ep:
+            y, aux = parallel.moe_apply(x, *leaves, axis=world, **kw)
+            loss = pax.psum((y.float() ** 2).mean(), world) + aux
+        else:
+            y, aux = parallel.moe_apply(x, *leaves, **kw)
+            loss = (y.float() ** 2).mean() + aux
+        return [y, aux] + list(torch.autograd.grad(loss, leaves))
+    want, got = run(False), run(True)
+    compare("moe y", got[0], want[0], KERNEL_TOL["bfloat16"])
+    for name, g, w in zip(("moe aux", "moe d w_gate", "moe d w_in",
+                           "moe d w_out"), got[1:], want[1:]):
+        compare(name, g, w, (1e-5, 1e-4, 1e-4))
+    # The dispatch all_to_all's (E, C, d) buffer; a step moves four such
+    # (dispatch and return, forward and backward).
+    cap = int(np.ceil(c["k"] * c["tokens"] * c["capacity_factor"] / c["e"]))
+    buf = torch.randn(c["e"], cap, c["d"], generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    return {"ms": _median_ms(lambda: run(True)),
+            "single_ms": _median_ms(lambda: run(False)),
+            "a2a_bytes": buf.numel() * buf.element_size(),
+            "a2a_ms": _median_ms(lambda: pax.all_to_all(buf, world, 0, 1))}
+
+
+def _pipeline_child(models, parallel, world, stages=PIPE_STAGES):
+    """``pipeline_apply`` on the full TransformerLM (24 layers, seed 0) over
+    ``world``: ``stages`` stages (rounds = stages / ranks, the interleaved
+    placement), the embedding as ``first_fn``, the final LayerNorm and LM
+    head as ``last_fn``, 8 microbatches of 1 x 512 (rank j holding its
+    share of the queue); PIPE_STEPS SGD steps against the model's own
+    forward and backward on the batch of 8 on this card, from the same
+    weights: losses, and the first step's gradients of this rank's stages,
+    the embedding and the head."""
+    from horovod_tpu_torch.models import transformer as tmod
+    cfg = models.TransformerConfig(**PAR_LM, causal=True, use_rope=True,
+                                   attention_impl="flash")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = models.TransformerLM(cfg, device="cuda", generator=gen)
+    x = torch.randint(0, cfg.vocab_size, (PIPE_M, cfg.max_len),
+                      device="cuda", generator=gen)
+    y = torch.randint(0, cfg.vocab_size, (PIPE_M, cfg.max_len),
+                      device="cuda", generator=gen)
+    per = cfg.layers // stages
+    modules = [nn.Sequential(*model.backbone.blocks[i * per:(i + 1) * per])
+               for i in range(stages)]
+    n = parallel.axis.axis_size(world)
+    idx = parallel.axis.axis_index(world)
+    rounds = stages // n
+    stacked = parallel.stack_stage_params(
+        [{k: p.detach() for k, p in m.named_parameters()} for m in modules],
+        n_ranks=n)
+    block = {k: a[idx * rounds:(idx + 1) * rounds].clone().requires_grad_()
+             for k, a in stacked.items()}
+    emb = model.backbone.tok_embed.weight.detach().clone().requires_grad_()
+    head = {k: p.detach().clone().requires_grad_() for k, p in (
+        ("ln_w", model.backbone.ln_f.weight),
+        ("ln_b", model.backbone.ln_f.bias),
+        ("w", model.lm_head.weight), ("b", model.lm_head.bias))}
+    dt = cfg.dtype
+
+    def first_fn(e, tokens):
+        return F.embedding(tokens, e.to(dt))
+
+    def last_fn(p, h):
+        h = F.layer_norm(h.float(), (cfg.hidden,), p["ln_w"], p["ln_b"],
+                         tmod.LN_EPS).to(dt)
+        return F.linear(h, p["w"].to(dt), p["b"].to(dt)).float()
+
+    stage_fn = parallel.module_stage(
+        nn.Sequential(*[tmod.Block(cfg, device="meta")
+                        for _ in range(per)]))
+    queue = x.view(PIPE_M, 1, cfg.max_len)
+    per_rank = PIPE_M // n
+    queue = queue[idx * per_rank:(idx + 1) * per_rank]
+    pipe_leaves = list(block.values()) + [emb] + list(head.values())
+
+    def pipe_loss():
+        out = parallel.pipeline_apply(
+            stage_fn, block, queue, world, first_fn=first_fn,
+            first_params=emb, last_fn=last_fn, last_params=head,
+            rounds=rounds)
+        return F.cross_entropy(out.reshape(-1, cfg.vocab_size),
+                               y.reshape(-1))
+
+    def model_loss():
+        logits = model(x)
+        return F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                               y.reshape(-1))
+
+    model_params = list(model.parameters())
+    opt_p = torch.optim.SGD(pipe_leaves, lr=PIPE_LR)
+    opt_m = torch.optim.SGD(model_params, lr=PIPE_LR)
+    torch.cuda.reset_peak_memory_stats()
+    res = {"losses": [], "model_losses": [], "grad_fro": {}}
+    for step in range(PIPE_STEPS):
+        opt_p.zero_grad()
+        loss = pipe_loss()
+        loss.backward()
+        res["losses"].append(loss.item())
+        opt_m.zero_grad()
+        mloss = model_loss()
+        mloss.backward()
+        res["model_losses"].append(mloss.item())
+        log(f"  pipeline step {step + 1}: loss {res['losses'][-1]:.6f} "
+            f"(model {res['model_losses'][-1]:.6f})")
+        if step == 0:
+            named = dict(model.named_parameters())
+            pairs = {"tok_embed": (emb.grad, named[
+                "backbone.tok_embed.weight"].grad)}
+            for key, mname in (("ln_w", "backbone.ln_f.weight"),
+                               ("ln_b", "backbone.ln_f.bias"),
+                               ("w", "lm_head.weight"),
+                               ("b", "lm_head.bias")):
+                pairs[mname] = (head[key].grad, named[mname].grad)
+            for i in range(cfg.layers):
+                stage, j = divmod(i, per)
+                slot = stage // n     # interleaved: stage ro*n + rank
+                if stage % n != idx:
+                    continue
+                for pname, leaf in block.items():
+                    if pname.startswith(f"{j}."):
+                        mname = f"backbone.blocks.{i}.{pname[len(f'{j}.'):]}"
+                        pairs[mname] = (leaf.grad[slot], named[mname].grad)
+            res["grad_fro"] = {k: _rel_fro([g], [w])
+                               for k, (g, w) in pairs.items()}
+        opt_p.step()
+        opt_m.step()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def pipe_step():
+        loss = pipe_loss()
+        torch.autograd.grad(loss, pipe_leaves)
+
+    def model_step():
+        loss = model_loss()
+        torch.autograd.grad(loss, model_params)
+    res["ms"] = _median_ms(pipe_step, 3)
+    res["model_ms"] = _median_ms(model_step, 3)
+    return res
+
+
+def parallel_child(out_path):
+    """The child of ``parallel_phase`` (``chip_smoke.py --parallel-child
+    OUT``): rank 0 of a one-rank launcher job on the NCCL-delegated plane.
+    Its axis is the world group the port's NCCL backend formed; ring
+    attention, Ulysses, the pipeline and MoE run over it, each against a
+    witness without the axis."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from horovod_tpu_torch import native as hnative
+    os.environ["HVDTPU_PEERS"] = \
+        f"127.0.0.1:{hnative.reserve_listen_port()}"
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import basics, models, parallel
+    from horovod_tpu_torch.ops import flash_attention as fa
+    hvd.init()
+    rt = basics.runtime()
+    if rt.mode != basics.MODE_SPMD or rt.backend.name != "nccl-global":
+        fail(f"[parallel] expected a launcher job on the NCCL-delegated "
+             f"plane, got {rt.mode}, {rt.backend.name}")
+    world = dist.group.WORLD
+    res = {"backend": str(dist.get_backend(world))}
+    fa.reset_launches()
+    res.update(_attention_child(fa, parallel, world))
+    res["lse_launches"] = res["ring"]["launches"]
+    torch.cuda.empty_cache()
+    res["moe"] = _moe_child(parallel, world)
+    torch.cuda.empty_cache()
+    res["pipeline"] = _pipeline_child(models, parallel, world)
+    hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -2864,6 +3447,13 @@ def main():
     ckpt_launches = ckpt_phase(zero_res)
     log("[launches] [ckpt] " + ", ".join(
         f"{n}={c}" for n, c in ckpt_launches.items()))
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    par_launches, par_rows = parallel_phase(fa, flush_buf)
+    del flush_buf
+    log("[launches] [parallel] " + ", ".join(
+        f"{n}={c}" for n, c in par_launches.items()))
+    launches.update(par_launches)
+    results.update(par_rows)
     log("[launches] " + ", ".join(f"{n}={c}" for n, c in launches.items()))
     if set(launches) != set(KERNELS) or not all(launches.values()):
         fail(f"a kernel was not launched on its path: {launches}")
@@ -2899,5 +3489,7 @@ if __name__ == "__main__":
         zero_child(sys.argv[2])
     elif sys.argv[1:2] == ["--ckpt-child"]:
         ckpt_child(*sys.argv[2:5])
+    elif sys.argv[1:2] == ["--parallel-child"]:
+        parallel_child(sys.argv[2])
     else:
         main()
