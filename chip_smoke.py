@@ -3376,6 +3376,371 @@ def parallel_child(out_path):
         json.dump(res, f)
 
 
+# ---------------------------------------------------------------------------
+# [sharded]: parallel/sharding.py's shard_model, resharding/'s group
+# executor and parallel/twod.py's TwoDZero
+# ---------------------------------------------------------------------------
+
+SHARD_STEPS = 3
+SHARD_LR, SHARD_WD = 1e-4, 1e-4   # AdamW as in [train]
+SHARD_TP_BH = {"tp2": TRAIN_BATCH * 16 // 2, "tp4": TRAIN_BATCH * 16 // 4}
+TWOD_DIMS = dict(d=1024, f=4096, tokens=4096)   # the MLP's widths
+TWOD_STEPS = 3
+
+
+def sharded_kernel_rows(fa, flush_buf):
+    """The three no-dropout kernels at the tensor-parallel ranks' shapes of
+    the TransformerLM (B·H 8·8 at tp 2, 8·4 at tp 4; S 512, D 64, bf16,
+    causal) against their plain versions, timed beside the bound and SDPA.
+    Returns ``{kernel: {"tp2": row, "tp4": row}}``."""
+    s, d = MAIN["seq"], MAIN["d"]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tol = KERNEL_TOL["bfloat16"]
+    scale = 1.0 / math.sqrt(d)
+    rows = {k: {} for k in ("fwd", "bwd_dkv", "bwd_dq")}
+    for label, bh in SHARD_TP_BH.items():
+        q, k, v, do = (torch.randn(bh, s, d, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        lens = (0, 0, s)
+        args = (q, k, v, lens, scale, True)
+        log(f"[sharded] kernels at {label}: bh={bh} s={s} d={d} bf16 causal")
+        o, _ = fa.attention_fwd(*args)
+        o_ref, lse_ref = fa.attention_fwd_plain(*args)
+        delta = (do.float() * o_ref.float()).sum(-1)
+        bargs = (q, k, v, do, lse_ref, delta, lens, scale, True)
+        dk, dv = fa.attention_bwd_dkv(*bargs)
+        dk_ref, dv_ref = fa.attention_bwd_dkv_plain(*bargs)
+        dq = fa.attention_bwd_dq(*bargs)
+        dq_ref = fa.attention_bwd_dq_plain(*bargs)
+        torch.cuda.synchronize()
+        errs = {"fwd": compare("fwd O", o, o_ref, tol),
+                "bwd_dkv": max(compare("bwd_dkv dK", dk, dk_ref, tol),
+                               compare("bwd_dkv dV", dv, dv_ref, tol)),
+                "bwd_dq": compare("bwd_dq dQ", dq, dq_ref, tol)}
+        pairs = visible_pairs(s, s, *lens, True)
+        lib = library_times(q, k, v, do, flush_buf, True, 0.0)
+        kern = {"fwd": lambda: fa.attention_fwd(*args),
+                "bwd_dkv": lambda: fa.attention_bwd_dkv(*bargs),
+                "bwd_dq": lambda: fa.attention_bwd_dq(*bargs)}
+        plain = {"fwd": lambda: fa.attention_fwd_plain(*args),
+                 "bwd_dkv": lambda: fa.attention_bwd_dkv_plain(*bargs),
+                 "bwd_dq": lambda: fa.attention_bwd_dq_plain(*bargs)}
+        for base in rows:
+            b_ms, b_by = bound(base, bh, s, s, d, pairs, 2)
+            r = {"max_abs_err": errs[base],
+                 "ms": time_ms(kern[base], 20, flush_buf),
+                 "plain_ms": time_ms(plain[base], 3, flush_buf),
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": lib[base]}
+            rows[base][label] = r
+            log(f"  {base + '_' + label:<14} kernel {r['ms']:.4f} ms | plain "
+                f"{r['plain_ms']:.3f} ms | bound {b_ms:.4f} ms ({b_by}) | "
+                f"{KERNELS[base][1]} {r['library_ms']:.4f} ms")
+    return rows
+
+
+def lm_config(models):
+    return models.TransformerConfig(**PAR_LM, causal=True, use_rope=True,
+                                    attention_impl="flash")
+
+
+def lm_batch(cfg, device="cuda"):
+    """The full-width TransformerLM from seed 0 on ``device`` and one batch
+    of TRAIN_BATCH x 512 (tokens, labels)."""
+    from horovod_tpu_torch import models
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = models.TransformerLM(cfg, device=device, generator=gen)
+    x, y = (torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_len),
+                          device=device, generator=gen) for _ in range(2))
+    return model, x, y
+
+
+def lm_reference(models, steps=SHARD_STEPS, timed=3):
+    """The unsharded model's own steps on this card (AdamW as in
+    [train]): losses, peak GiB and parameters after ``steps`` steps, then
+    ``timed`` more for the step ms."""
+    cfg = lm_config(models)
+    model, x, y = lm_batch(cfg)
+    opt = torch.optim.AdamW(model.parameters(), lr=SHARD_LR,
+                            weight_decay=SHARD_WD)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for i in range(steps + timed):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        logits = model(x)
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               y.reshape(-1))
+        loss.backward()
+        opt.step()
+        loss = loss.item()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i < steps:
+            losses.append(loss)
+        if i == steps - 1:
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            params = {k: v.detach().clone()
+                      for k, v in model.state_dict().items()}
+    out = {"losses": losses, "ms": _median(times[1:]), "peak_gib": peak,
+           "params": params}
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_sharded(fa, models, sharding, mesh, steps=SHARD_STEPS, timed=3):
+    """``shard_model`` of the full-width TransformerLM (seed 0) on ``mesh``:
+    ``steps`` AdamW steps on this rank's batch slice, the flash launches of
+    each, the peak GiB over them and the gathered parameters after them,
+    then ``timed`` more steps for the step ms."""
+    cfg = lm_config(models)
+    model, x, y = lm_batch(cfg)
+    sm = sharding.shard_model(model, mesh)
+    del model
+    torch.cuda.empty_cache()
+    opt = torch.optim.AdamW(sm.parameters(), lr=SHARD_LR,
+                            weight_decay=SHARD_WD)
+    x, y = sm.local_batch(x), sm.local_batch(y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, launches, times = [], [], []
+    for _ in range(steps + timed):
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        loss = sm.train_step(opt, x, y).item()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if len(losses) < steps:
+            losses.append(loss)
+            launches.append({n: c for n, c in fa.LAUNCHES.items() if c})
+            if len(losses) == steps:
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                params = sm.full_state_dict()
+    out = {"losses": losses, "launches": launches,
+           "ms": _median(times[1:]), "peak_gib": peak, "params": params,
+           "local_param_bytes": sum(p.numel() * p.element_size()
+                                    for p in sm.parameters())}
+    del sm, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def group_round_trip(resharding, zero, leaves, group, n, src_axis="hvd"):
+    """``execute_group`` moves ``leaves`` from Replicated over ``n`` ranks
+    (mesh axis ``src_axis``) to the ZeRO-1 flat layout over ``n`` ranks
+    (axis "hvd") and back; returns the wire and placed bytes, seconds,
+    peak bytes of each way and whether the round trip gave every leaf back
+    bit for bit."""
+    meta = resharding.tree_meta_of(leaves)
+    plan = zero.plan_zero(leaves, n)
+    src = resharding.replicated_spec(len(leaves), {src_axis: n})
+    dst = resharding.zero_flat_spec(plan, axis="hvd")
+    flat = [t.detach().reshape(-1) for t in leaves]
+    out = {}
+    torch.cuda.synchronize()
+    fwd = resharding.plan_redistribution(src, dst, meta)
+    bufs, rep = resharding.execute_group(
+        fwd, lambda r, buf, a, n_: flat[buf[1]][a:a + n_], group=group)
+    out["to_zero"] = {k: rep[k] for k in ("wire_bytes", "sent_bytes",
+                                          "peak_bytes", "seconds")}
+    out["to_zero"].update(strategy=fwd.strategy, steps=len(fwd.steps),
+                          placed_bytes=sum(rep["bytes_by_leg"].values()))
+    back = resharding.plan_redistribution(dst, src, meta)
+    again, rep = resharding.execute_group(
+        back, lambda r, buf, a, n_: bufs[buf][a:a + n_], group=group)
+    out["to_replicated"] = {k: rep[k] for k in ("wire_bytes", "sent_bytes",
+                                                "peak_bytes", "seconds")}
+    out["to_replicated"].update(
+        strategy=back.strategy, steps=len(back.steps),
+        placed_bytes=sum(rep["bytes_by_leg"].values()))
+    out["bit_equal"] = all(torch.equal(again[("leaf", i)], flat[i])
+                           for i in range(len(flat)))
+    out["tree_bytes"] = sum(t.numel() * t.element_size() for t in flat)
+    return out
+
+
+def twod_inputs(device, dims=TWOD_DIMS, seed=7):
+    """tests/test_twod.py's parameters and batch at ``dims`` (d -> f,
+    ``tokens`` rows), from ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d, f = dims["d"], dims["f"]
+    params = {"mlp_in": {"kernel": torch.randn(d, f, generator=gen,
+                                               device=device) * d ** -0.5,
+                         "bias": torch.randn(f, generator=gen,
+                                             device=device)},
+              "scale": torch.randn(d, generator=gen, device=device)}
+    batch = torch.randn(dims["tokens"], d, generator=gen, device=device)
+    return params, batch
+
+
+def twod_loss(p, b):
+    """tests/test_twod.py's column-decomposable loss."""
+    h = b * p["scale"]
+    y = h @ p["mlp_in"]["kernel"] + p["mlp_in"]["bias"]
+    return torch.sum(y * y)
+
+
+def twod_one_card(twod, tree):
+    """``TwoDZero`` at (1, 1) on the MLP's widths, TWOD_STEPS steps of
+    AdamW as its inner optimizer, against plain AdamW over the same
+    parameters: losses and parameters (max |diff|)."""
+    import functools
+    params, batch = twod_inputs("cuda")
+    inner = functools.partial(torch.optim.AdamW, lr=SHARD_LR,
+                              weight_decay=SHARD_WD)
+    tz = twod.TwoDZero(inner, twod.make_mesh_2d(1, 1))
+    local = tz.shard(params)
+    state = tz.init_state(local)
+    step = tz.make_step(twod_loss)
+    plain = [x.clone().requires_grad_() for x in tree.leaves(params)]
+    opt = inner(plain)
+    out = {"losses": [], "plain_losses": [], "ms": []}
+    p = local
+    for _ in range(TWOD_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, state, loss = step(p, state, batch)
+        out["losses"].append(loss.item())
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        opt.zero_grad(set_to_none=True)
+        ploss = twod_loss(tree.unflatten(tree.structure(params), plain),
+                          batch)
+        ploss.backward()
+        opt.step()
+        out["plain_losses"].append(ploss.item())
+    out["max_param_diff"] = max(
+        (a - b).abs().max().item()
+        for a, b in zip(tree.leaves(p), plain))
+    out["buckets"] = len(tz.plan.buckets)
+    return out
+
+
+def sharded_child(out_path):
+    """The child of ``sharded_phase`` (``chip_smoke.py --sharded-child
+    OUT``): rank 0 of a one-rank launcher job on the NCCL-delegated plane,
+    its mesh the world group's. ``shard_model`` at (1, 1, 1) against the
+    unsharded model's steps, ``execute_group``'s round trip of the full
+    parameter tree, and ``TwoDZero`` at (1, 1) against plain AdamW."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from horovod_tpu_torch import native as hnative
+    os.environ["HVDTPU_PEERS"] = \
+        f"127.0.0.1:{hnative.reserve_listen_port()}"
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import basics, models, parallel, resharding
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import zero
+    from horovod_tpu_torch.parallel import sharding, twod
+    from horovod_tpu_torch.utils import tree
+    hvd.init()
+    rt = basics.runtime()
+    if rt.mode != basics.MODE_SPMD or rt.backend.name != "nccl-global":
+        fail(f"[sharded] expected a launcher job on the NCCL-delegated "
+             f"plane, got {rt.mode}, {rt.backend.name}")
+    res = {"backend": str(dist.get_backend())}
+    ref = lm_reference(models)
+    mesh = parallel.make_mesh(parallel.MeshConfig(dp=1))
+    got = lm_sharded(fa, models, sharding, mesh)
+    res["lm"] = {"losses": got["losses"], "ref_losses": ref["losses"],
+                 "launches": got["launches"], "ms": got["ms"],
+                 "ref_ms": ref["ms"], "peak_gib": got["peak_gib"],
+                 "ref_peak_gib": ref["peak_gib"],
+                 "params_equal": all(torch.equal(got["params"][k], v)
+                                     for k, v in ref["params"].items())}
+    leaves = [v for v in got["params"].values()]
+    del ref, got
+    torch.cuda.empty_cache()
+    res["group"] = group_round_trip(resharding, zero, leaves,
+                                    dist.group.WORLD, 1)
+    del leaves
+    torch.cuda.empty_cache()
+    res["twod"] = twod_one_card(twod, tree)
+    hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def sharded_verdict(res):
+    """The checks of the ``[sharded]`` child's results: the failures."""
+    bad = []
+    lm = res["lm"]
+    if lm["losses"] != lm["ref_losses"]:
+        bad.append(f"shard_model losses {lm['losses']} are not the "
+                   f"unsharded model's {lm['ref_losses']}")
+    if not lm["params_equal"]:
+        bad.append("shard_model's parameters after the steps are not the "
+                   "unsharded model's")
+    want = dict.fromkeys(("fwd", "bwd_dkv", "bwd_dq"), PAR_LM["layers"])
+    if any(launch != want for launch in lm["launches"]):
+        bad.append(f"shard_model launches per step {lm['launches']}, "
+                   f"expected {want}")
+    if not all(math.isfinite(x) for x in lm["losses"]):
+        bad.append(f"non-finite losses {lm['losses']}")
+    if not res["group"]["bit_equal"]:
+        bad.append("execute_group's round trip did not give the tree back")
+    tw = res["twod"]
+    if tw["losses"] != tw["plain_losses"] or tw["max_param_diff"] != 0.0:
+        bad.append(f"TwoDZero at (1, 1) losses {tw['losses']} against "
+                   f"AdamW's {tw['plain_losses']}, parameters max |diff| "
+                   f"{tw['max_param_diff']:.3e}")
+    if res["backend"] != "nccl":
+        bad.append(f"the group was {res['backend']}, not NCCL")
+    return bad
+
+
+def sharded_phase(fa, flush_buf):
+    """Drive ``parallel/sharding.py``, ``resharding/`` and
+    ``parallel/twod.py`` on the card: the no-dropout kernels at the
+    tensor-parallel ranks' shapes, then a one-rank launcher job
+    (``--sharded-child``). Returns the kernels' launches on the sharded
+    model's steps and the kernel rows."""
+    import tempfile
+    torch.cuda.empty_cache()
+    rows = sharded_kernel_rows(fa, flush_buf)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="hvd-sharded-") as tmp:
+        out = os.path.join(tmp, "sharded.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--sharded-child",
+             out], env=_one_rank_env(), timeout=600)
+        if proc.returncode != 0:
+            fail(f"[sharded] the one-rank launcher job exited "
+                 f"{proc.returncode}")
+        with open(out) as f:
+            res = json.load(f)
+    lm, g, tw = res["lm"], res["group"], res["twod"]
+    log(f"[sharded] shard_model at mesh (1, 1, 1), TransformerLM "
+        f"{PAR_LM['layers']} layers, batch {TRAIN_BATCH} x 512, "
+        f"{SHARD_STEPS} AdamW steps: losses {lm['losses']} against the "
+        f"unsharded model's {lm['ref_losses']} (bit-equal: "
+        f"{lm['losses'] == lm['ref_losses']}; parameters equal: "
+        f"{lm['params_equal']}); launches per step {lm['launches'][0]}; "
+        f"step {lm['ms']:.1f} ms against {lm['ref_ms']:.1f}; peak "
+        f"{lm['peak_gib']:.2f} GiB against {lm['ref_peak_gib']:.2f}")
+    for way in ("to_zero", "to_replicated"):
+        r = g[way]
+        log(f"[sharded] execute_group {way}: {g['tree_bytes'] / 2 ** 30:.3f}"
+            f" GiB tree, {r['strategy']} program of {r['steps']} steps, "
+            f"wire {r['wire_bytes']} B, placed {r['placed_bytes']} B in "
+            f"{r['seconds'] * 1e3:.1f} ms "
+            f"({r['placed_bytes'] / r['seconds'] / 1e9:.2f} GB/s), peak "
+            f"{r['peak_bytes'] / 2 ** 30:.3f} GiB")
+    log(f"[sharded] execute_group round trip bit-equal: {g['bit_equal']}")
+    log(f"[sharded] TwoDZero (1, 1), {TWOD_DIMS['d']} -> {TWOD_DIMS['f']}, "
+        f"{TWOD_DIMS['tokens']} tokens, {tw['buckets']} buckets: losses "
+        f"{tw['losses']} against AdamW's {tw['plain_losses']}; parameters "
+        f"max |diff| {tw['max_param_diff']:.3e}; step ms "
+        f"{[round(t, 2) for t in tw['ms']]}")
+    bad = sharded_verdict(res)
+    if bad:
+        fail("[sharded] " + "; ".join(bad))
+    launches = {}
+    for per in lm["launches"]:
+        for n, c in per.items():
+            launches[n] = launches.get(n, 0) + c
+    return launches, rows
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -3449,11 +3814,16 @@ def main():
         f"{n}={c}" for n, c in ckpt_launches.items()))
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     par_launches, par_rows = parallel_phase(fa, flush_buf)
-    del flush_buf
     log("[launches] [parallel] " + ", ".join(
         f"{n}={c}" for n, c in par_launches.items()))
     launches.update(par_launches)
     results.update(par_rows)
+    shard_launches, shard_rows = sharded_phase(fa, flush_buf)
+    del flush_buf
+    log("[launches] [sharded] " + ", ".join(
+        f"{n}={c}" for n, c in shard_launches.items()))
+    for name, by_tp in shard_rows.items():
+        results[name].update(by_tp)
     log("[launches] " + ", ".join(f"{n}={c}" for n, c in launches.items()))
     if set(launches) != set(KERNELS) or not all(launches.values()):
         fail(f"a kernel was not launched on its path: {launches}")
@@ -3491,5 +3861,7 @@ if __name__ == "__main__":
         ckpt_child(*sys.argv[2:5])
     elif sys.argv[1:2] == ["--parallel-child"]:
         parallel_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--sharded-child"]:
+        sharded_child(sys.argv[2])
     else:
         main()

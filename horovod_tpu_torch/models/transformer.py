@@ -103,28 +103,35 @@ class Attention(nn.Module):
                           device)
 
     def forward(self, x):
-        cfg = self.cfg
-        b, s, _ = x.shape
-        qkv = self.qkv(x).view(b, s, 3, cfg.heads, self.head_dim)
-        # (B, H, S, D) for both attention implementations.
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        if cfg.use_rope:
-            q, k = _rope(q, k)
-        if cfg.attention_impl == "flash":
-            out = flash_attention(q, k, v, causal=cfg.causal)
-        elif cfg.attention_impl == "einsum":
-            logits = torch.matmul(q, k.transpose(-1, -2)) * (
-                1.0 / math.sqrt(self.head_dim))
-            if cfg.causal:
-                keep = torch.ones(s, s, dtype=torch.bool,
-                                  device=x.device).tril()
-                logits = logits.masked_fill(~keep, -1e30)
-            probs = torch.softmax(logits.float(), dim=-1).to(cfg.dtype)
-            out = torch.matmul(probs, v)
-        else:
-            raise ValueError(
-                f"unknown attention_impl {cfg.attention_impl!r}")
-        return self.proj(out.transpose(1, 2).reshape(b, s, -1))
+        return self.proj(attend(self.cfg, self.qkv(x), self.head_dim))
+
+
+def attend(cfg, qkv, head_dim):
+    """Attention over the fused projection ``qkv`` (B, S, 3 * heads *
+    head_dim), laid out (3, heads, head_dim), for however many heads it
+    holds (all of them, or a tensor-parallel rank's): RoPE, then dense or
+    flash attention. Returns (B, S, heads * head_dim)."""
+    b, s, _ = qkv.shape
+    qkv = qkv.view(b, s, 3, -1, head_dim)
+    # (B, H, S, D) for both attention implementations.
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    if cfg.use_rope:
+        q, k = _rope(q, k)
+    if cfg.attention_impl == "flash":
+        out = flash_attention(q, k, v, causal=cfg.causal)
+    elif cfg.attention_impl == "einsum":
+        logits = torch.matmul(q, k.transpose(-1, -2)) * (
+            1.0 / math.sqrt(head_dim))
+        if cfg.causal:
+            keep = torch.ones(s, s, dtype=torch.bool,
+                              device=qkv.device).tril()
+            logits = logits.masked_fill(~keep, -1e30)
+        probs = torch.softmax(logits.float(), dim=-1).to(cfg.dtype)
+        out = torch.matmul(probs, v)
+    else:
+        raise ValueError(
+            f"unknown attention_impl {cfg.attention_impl!r}")
+    return out.transpose(1, 2).reshape(b, s, -1)
 
 
 class Block(nn.Module):

@@ -1,7 +1,8 @@
 """Mesh axes as torch process groups.
 
 The port's counterpart of the ``jax.lax`` collectives a ``shard_map`` body
-calls (``ppermute``, ``all_to_all``, ``psum``, ``pmean``) and of
+calls (``ppermute``, ``all_to_all``, ``psum``, ``pmean``, ``all_gather``,
+``psum_scatter``) and of
 ``utils/jax_compat.py``'s ``axis_size``, ``vary_replicated`` and ``pvary``.
 An axis is a ``torch.distributed`` process group (NCCL for CUDA tensors,
 gloo for CPU tensors): the world group, a ``new_group`` or a dimension of a
@@ -20,6 +21,9 @@ PyTorch derives none, so each collective here is a
   first, which JAX inserts by itself.
 - ``vary_replicated``: the identity forward, a sum over the axis backward,
   so that a replicated input's gradient comes out whole on every rank.
+- ``all_gather`` (tiled) and ``psum_scatter`` (tiled): each other's
+  transpose. ``all_gather_invariant``: this rank's block of the cotangent,
+  for a gathered value every rank uses alike.
 
 Every rank must call the same collectives in the same order, forward and
 backward: a collective's backward runs only where its output reached the
@@ -266,3 +270,103 @@ def vary_replicated(x, axis):
     group = _group(axis)
     _check((x,), group, "vary_replicated")
     return _VaryReplicated.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
+# all_gather / psum_scatter (tiled)
+# ---------------------------------------------------------------------------
+
+def _gather_fn():
+    return getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+
+
+def _scatter_fn():
+    return getattr(dist, "reduce_scatter_single", None) \
+        or dist.reduce_scatter_tensor
+
+
+def _all_gather(x, group, dim):
+    """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+    n = dist.get_world_size(group)
+    inp = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * inp.shape[0],) + tuple(inp.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    _gather_fn()(out, inp, group=group)
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter(x, group, dim):
+    """The sum over ranks of ``x``, this rank's block of ``dim``."""
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"psum_scatter: dimension {dim} of "
+                         f"{tuple(x.shape)} is not divisible by the axis "
+                         f"size {n}")
+    inp = x.movedim(dim, 0).contiguous()
+    out = torch.empty((inp.shape[0] // n,) + tuple(inp.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    _scatter_fn()(out, inp, op=dist.ReduceOp.SUM, group=group)
+    return out.movedim(0, dim)
+
+
+def _own_block(x, group, dim):
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    size = x.shape[dim] // n
+    return x.narrow(dim, r * size, size).contiguous()
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, invariant):
+        ctx.args = (group, dim, invariant)
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim, invariant = ctx.args
+        g = _own_block(g, group, dim) if invariant \
+            else _reduce_scatter(g, group, dim)
+        return g, None, None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.args = (group, dim)
+        return _reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, *ctx.args), None, None
+
+
+def all_gather(x, axis, dim=0):
+    """``lax.all_gather(x, axis, axis=dim, tiled=True)``: every rank's
+    ``x`` concatenated along ``dim`` in rank order. The backward is
+    ``psum_scatter`` of the cotangent: each rank's block gets the sum of
+    every rank's cotangent for it, as when each rank uses the gathered
+    value on its own data (FSDP's weight gather)."""
+    group = _group(axis)
+    _check((x,), group, "all_gather")
+    return _AllGather.apply(x, group, dim % x.dim(), False)
+
+
+def all_gather_invariant(x, axis, dim=0):
+    """The forward of :func:`all_gather`, for a result every rank uses
+    alike (the same loss from it on each rank, the invariant result that
+    GSPMD's partitioner gives a replicated output). The backward takes
+    this rank's block of the cotangent, with no sum: Megatron's gather of
+    column-parallel outputs."""
+    group = _group(axis)
+    _check((x,), group, "all_gather_invariant")
+    return _AllGather.apply(x, group, dim % x.dim(), True)
+
+
+def psum_scatter(x, axis, dim=0):
+    """``lax.psum_scatter(x, axis, scatter_dimension=dim, tiled=True)``:
+    the sum over ranks, this rank's block of ``dim``. The backward is the
+    tiled ``all_gather`` of the cotangent."""
+    group = _group(axis)
+    _check((x,), group, "psum_scatter")
+    return _PsumScatter.apply(x, group, dim % x.dim())

@@ -101,6 +101,14 @@ ZERO_BUCKET_BYTES = register(
     "Payload bytes per ZeRO fusion bucket (reduce-scatter/allgather "
     "legs); defaults to the overlap plane's bucket budget")
 
+# -- redistribution planner (resharding/) -------------------------------------
+RESHARD_BUCKET_BYTES = register(
+    "RESHARD_BUCKET_BYTES", "4 MiB",
+    "Window budget of redistribution-planner collective steps "
+    "(horovod_tpu_torch/resharding/): no step stages more than this many "
+    "bytes per rank, so an elastic reshard or train->serve transform "
+    "never materializes a fully-replicated leaf")
+
 # -- control plane (coordinator, native core) --------------------------------
 CYCLE_TIME = register(
     "CYCLE_TIME", "1.0 ms",

@@ -179,7 +179,7 @@ def test_knobs_and_reduce_ops_match_the_jax_package():
         "COMPRESSION_THRESHOLD", "COMPRESSION_BLOCK",
         "COMPRESSION_ERROR_FEEDBACK", "SPARSE", "SPARSE_THRESHOLD",
         "SPARSE_EMA", "CONSISTENCY_CHECK", "CONSISTENCY_TIMEOUT",
-        "COLLECTIVE_TIMEOUT", "CHECKPOINT_KEEP"}
+        "COLLECTIVE_TIMEOUT", "CHECKPOINT_KEEP", "RESHARD_BUCKET_BYTES"}
     for name, knob in tenv.KNOBS.items():
         assert getattr(tenv, name) == name
         assert knob["default"] == jenv.KNOBS[name]["default"]
