@@ -232,14 +232,14 @@ class BertSelfAttention(nn.Module):
         self.value = nn.Linear(c.hidden_size, c.hidden_size, **dev)
         self.dropout_prob = c.attention_probs_dropout_prob
 
-    def forward(self, x):
+    def forward(self, x, attn_mask=None):
         b, s, _ = x.shape
 
         def split(t):
             return t.view(b, s, self.heads, self.head_dim).transpose(1, 2)
         ctx = F.scaled_dot_product_attention(
             split(self.query(x)), split(self.key(x)), split(self.value(x)),
-            attn_mask=None,
+            attn_mask=attn_mask,
             dropout_p=self.dropout_prob if self.training else 0.0,
             is_causal=False, scale=self.head_dim ** -0.5)
         return ctx.transpose(1, 2).reshape(b, s, -1)
@@ -263,8 +263,8 @@ class BertAttention(nn.Module):
         self.self = BertSelfAttention(c, **dev)
         self.output = BertSelfOutput(c, c.hidden_size, **dev)
 
-    def forward(self, x):
-        return self.output(self.self(x), x)
+    def forward(self, x, attn_mask=None):
+        return self.output(self.self(x, attn_mask), x)
 
 
 class BertIntermediate(nn.Module):
@@ -283,8 +283,8 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(c, **dev)
         self.output = BertSelfOutput(c, c.intermediate_size, **dev)
 
-    def forward(self, x):
-        x = self.attention(x)
+    def forward(self, x, attn_mask=None):
+        x = self.attention(x, attn_mask)
         return self.output(self.intermediate(x), x)
 
 
@@ -294,9 +294,9 @@ class BertEncoder(nn.Module):
         self.layer = nn.ModuleList(BertLayer(c, **dev)
                                    for _ in range(c.num_hidden_layers))
 
-    def forward(self, x):
+    def forward(self, x, attn_mask=None):
         for layer in self.layer:
-            x = layer(x)
+            x = layer(x, attn_mask)
         return x
 
 
@@ -306,8 +306,15 @@ class BertModel(nn.Module):
         self.embeddings = BertEmbeddings(c, **dev)
         self.encoder = BertEncoder(c, **dev)
 
-    def forward(self, input_ids):
-        return self.encoder(self.embeddings(input_ids))
+    def forward(self, input_ids, attention_mask=None):
+        x = self.embeddings(input_ids)
+        mask = None
+        if attention_mask is not None:
+            # HF's SDPA path: an additive mask of the dtype's minimum where
+            # a key is padding (never read on the host).
+            mask = (1.0 - attention_mask[:, None, None, :].to(x.dtype)) \
+                * torch.finfo(x.dtype).min
+        return self.encoder(x, mask)
 
 
 class BertPredictionHeadTransform(nn.Module):
@@ -369,8 +376,8 @@ class BertForMaskedLM(nn.Module):
                 if isinstance(m, nn.Embedding) and m.padding_idx is not None:
                     m.weight[m.padding_idx].zero_()
 
-    def forward(self, input_ids, labels=None):
-        logits = self.cls(self.bert(input_ids))
+    def forward(self, input_ids, labels=None, attention_mask=None):
+        logits = self.cls(self.bert(input_ids, attention_mask))
         out = {"logits": logits}
         if labels is not None:
             out["loss"] = F.cross_entropy(
@@ -3741,6 +3748,469 @@ def sharded_phase(fa, flush_buf):
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# [bertmodel]: the port's BertModel at BERT-large's shape, with remat
+# ---------------------------------------------------------------------------
+
+BERTMODEL_STEPS = 5
+BERTMODEL_REMAT = (False, "dots", True)
+# Remat changes no operation's inputs, so the losses match the no-remat
+# run's; the limit leaves room for the order of floating-point atomics in
+# cuBLAS/embedding backward kernels between runs.
+BERTMODEL_LOSS_RTOL = 1e-4
+PAD_LEN = 300            # the padded row's length in the padding witness
+
+
+def noncausal_kernel_rows(fa, flush_buf):
+    """The three no-dropout kernels at BertModel's shape (B·H 8·16, S 512,
+    D 64, bf16, not causal) against their plain versions, timed beside the
+    bound and SDPA's non-causal flash backend. Returns
+    ``{kernel: {"noncausal": row}}``."""
+    s, d, bh = MAIN["seq"], MAIN["d"], MAIN["bh"]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    tol = KERNEL_TOL["bfloat16"]
+    scale = 1.0 / math.sqrt(d)
+    q, k, v, do = (torch.randn(bh, s, d, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    lens = (0, 0, s)
+    args = (q, k, v, lens, scale, False)
+    log(f"[bertmodel] kernels: bh={bh} s={s} d={d} bf16 non-causal, no "
+        "dropout")
+    o, _ = fa.attention_fwd(*args)
+    o_ref, lse_ref = fa.attention_fwd_plain(*args)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    bargs = (q, k, v, do, lse_ref, delta, lens, scale, False)
+    dk, dv = fa.attention_bwd_dkv(*bargs)
+    dk_ref, dv_ref = fa.attention_bwd_dkv_plain(*bargs)
+    dq = fa.attention_bwd_dq(*bargs)
+    dq_ref = fa.attention_bwd_dq_plain(*bargs)
+    torch.cuda.synchronize()
+    errs = {"fwd": compare("fwd O", o, o_ref, tol),
+            "bwd_dkv": max(compare("bwd_dkv dK", dk, dk_ref, tol),
+                           compare("bwd_dkv dV", dv, dv_ref, tol)),
+            "bwd_dq": compare("bwd_dq dQ", dq, dq_ref, tol)}
+    pairs = visible_pairs(s, s, *lens, False)
+    lib = library_times(q, k, v, do, flush_buf, False, 0.0)
+    kern = {"fwd": lambda: fa.attention_fwd(*args),
+            "bwd_dkv": lambda: fa.attention_bwd_dkv(*bargs),
+            "bwd_dq": lambda: fa.attention_bwd_dq(*bargs)}
+    plain = {"fwd": lambda: fa.attention_fwd_plain(*args),
+             "bwd_dkv": lambda: fa.attention_bwd_dkv_plain(*bargs),
+             "bwd_dq": lambda: fa.attention_bwd_dq_plain(*bargs)}
+    rows = {}
+    for base in ("fwd", "bwd_dkv", "bwd_dq"):
+        b_ms, b_by = bound(base, bh, s, s, d, pairs, 2)
+        r = {"max_abs_err": errs[base],
+             "ms": time_ms(kern[base], 20, flush_buf),
+             "plain_ms": time_ms(plain[base], 3, flush_buf),
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib[base]}
+        rows[base] = {"noncausal": r}
+        log(f"  {base + '_noncausal':<18} kernel {r['ms']:.4f} ms | plain "
+            f"{r['plain_ms']:.3f} ms | bound {b_ms:.4f} ms ({b_by}) | "
+            f"sdpa flash non-causal {r['library_ms']:.4f} ms")
+    return rows
+
+
+def linear_aten_ops():
+    """The aten ops a 3-D ``F.linear`` reaches on the card (what the remat
+    "dots" policy sees), for a contiguous input and a transposed one."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+    x = torch.randn(8, 512, 1024, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(4096, 1024, device="cuda", dtype=torch.bfloat16)
+    b = torch.randn(4096, device="cuda", dtype=torch.bfloat16)
+    out = {}
+    for label, inp in (("contiguous", x), ("transposed", x.transpose(0, 1))):
+        with Ops() as mode:
+            F.linear(inp, w, b)
+        out[label] = [op for op in mode.ops
+                      if op.split(".")[1] in ("mm", "addmm", "bmm")]
+    return out
+
+
+def bertmodel_run(hvd, fa, models, remat):
+    """BERTMODEL_STEPS AdamW steps of BertModel (BERT-large, flash, bf16,
+    seed 0) at batch TRAIN_BATCH x 512 under ``remat``: losses, step ms,
+    peak memory and each kernel's launches per step."""
+    cfg = models.BertConfig(attention_impl="flash", remat=remat)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = models.BertModel(cfg, device=hvd.device(), generator=gen)
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+        model.parameters(), lr=1e-4, weight_decay=1e-4))
+
+    def loss_fn(m, batch):
+        logits = m(batch)
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               batch.reshape(-1))
+    step = hvd.make_train_step(loss_fn, opt)
+    x = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, cfg.max_len),
+                      device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, times, per_step = [], [], []
+    for _ in range(BERTMODEL_STEPS):
+        before = dict(fa.LAUNCHES)
+        t0 = time.perf_counter()
+        losses.append(step(model, x).item())
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({n: fa.LAUNCHES[n] - before.get(n, 0)
+                         for n in fa.LAUNCHES
+                         if fa.LAUNCHES[n] - before.get(n, 0)})
+    res = {"losses": losses, "ms": _median(times[1:]),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": per_step,
+           "params": sum(p.numel() for p in model.parameters())}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def padded_witness(models):
+    """A right-padded batch through BertModel's einsum path (learned
+    positions, 2 layers at full width, bf16): the logits at the kept
+    positions of the padded row against the same row cut to its length.
+    Returns (max_abs_err, limit, rel_fro)."""
+    cfg = models.BertConfig(attention_impl="einsum", layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    model = models.BertModel(cfg, device="cuda", generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, cfg.max_len),
+                           device="cuda", generator=gen)
+    mask = torch.ones(2, cfg.max_len, dtype=torch.bool, device="cuda")
+    mask[1, PAD_LEN:] = False
+    with torch.no_grad():
+        padded = model(tokens, mask)[1, :PAD_LEN]
+        cut = model(tokens[1:, :PAD_LEN])[0]
+    diff = (padded - cut).abs()
+    err, scale = diff.max().item(), cut.abs().max().item()
+    fro = (diff.norm() / cut.norm()).item()
+    return err, 5e-2 * scale, fro
+
+
+def bridge_padded_check(hvd_torch):
+    """Repair of the bridge: a right-padded BERT-style call (the 2-layer
+    stand-in at full width, HF's additive SDPA mask) through tpu_compile
+    on the card takes the einsum lowering and equals the same call's CPU
+    lowering (the same bf16 weights, eval mode). Returns (max_abs_err,
+    limit, rel_fro)."""
+    from horovod_tpu_torch.torch import compile as tcompile
+    cfg = BertConfig(**dict(BERT, num_hidden_layers=2))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    model = BertForMaskedLM(cfg, device="cuda", generator=gen)
+    ids = torch.randint(0, cfg.vocab_size, (2, 128), device="cuda",
+                        generator=gen)
+    attn = torch.ones_like(ids)
+    attn[1, 77:] = 0
+    compiled = hvd_torch.tpu_compile(model, compute_dtype=torch.bfloat16)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        card = compiled(input_ids=ids, attention_mask=attn)["logits"]
+        host = tcompile.CompiledModule(
+            model, {k: v.detach().cpu() for k, v in compiled.params.items()},
+            {k: v.cpu() for k, v in compiled.buffers.items()},
+            torch.device("cpu"), compute_dtype=torch.bfloat16)(
+                input_ids=ids.cpu(), attention_mask=attn.cpu())["logits"]
+    notes = {str(w.message) for w in caught}
+    if not any("not statically all-keep" in n for n in notes):
+        fail(f"[bertmodel] the padded bridge call did not take the einsum "
+             f"lowering: {notes}")
+    diff = (card.float().cpu() - host.float()).abs()
+    err, scale = diff.max().item(), host.float().abs().max().item()
+    fro = (diff.norm() / host.float().norm()).item()
+    return err, 5e-2 * scale, fro
+
+
+def bertmodel_verdict(runs, layers):
+    """The checks of ``[bertmodel]``'s three runs: the failures."""
+    bad = []
+    base = runs[False]["losses"]
+    for remat, r in runs.items():
+        ls = r["losses"]
+        if not all(math.isfinite(v) for v in ls) or not ls[-1] < ls[0]:
+            bad.append(f"remat={remat!r}: losses {ls} do not descend")
+        worst = max(abs(a - b) / abs(b) for a, b in zip(ls, base))
+        if worst > BERTMODEL_LOSS_RTOL:
+            bad.append(f"remat={remat!r} moved the losses by {worst:.2e} "
+                       f"relative (limit {BERTMODEL_LOSS_RTOL:g})")
+        fwd = 2 * layers if remat else layers
+        want = {"fwd": fwd, "bwd_dkv": layers, "bwd_dq": layers}
+        if any(per != want for per in r["launches"]):
+            bad.append(f"remat={remat!r}: launches per step "
+                       f"{r['launches']}, expected {want}")
+    peaks = [runs[m]["peak_gib"] for m in BERTMODEL_REMAT]
+    if not peaks[0] > peaks[1] > peaks[2]:
+        bad.append(f"peak memory not ordered False > dots > True: {peaks}")
+    return bad
+
+
+def bertmodel_phase(hvd, hvd_torch, fa, models, flush_buf):
+    """Drive ``models.BertModel`` on the card: the non-causal no-dropout
+    kernels at its shape, BERT-large through DistributedOptimizer under
+    each remat, the padding witness and the bridge's padded call. Returns
+    the kernel rows and the launches of the remat runs."""
+    rows = noncausal_kernel_rows(fa, flush_buf)
+    ops = linear_aten_ops()
+    log(f"[bertmodel] aten ops of a 3-D F.linear on the card (remat "
+        f"'dots' keeps mm/addmm, recomputes bmm): contiguous input "
+        f"{ops['contiguous']}, transposed input {ops['transposed']}")
+    runs = {}
+    for remat in BERTMODEL_REMAT:
+        r = runs[remat] = bertmodel_run(hvd, fa, models, remat)
+        log(f"[bertmodel] remat={remat!r}: BertModel {r['params'] / 1e6:.1f}M"
+            f" params, batch {TRAIN_BATCH} x 512, bf16, flash, "
+            f"{BERTMODEL_STEPS} AdamW steps: losses "
+            f"{[round(v, 6) for v in r['losses']]}; step ms (median of "
+            f"steps 2-{BERTMODEL_STEPS}) {r['ms']:.1f}; peak "
+            f"{r['peak_gib']:.2f} GiB; launches per step {r['launches'][0]}")
+    layers = models.BertConfig().layers
+    base = runs[False]["losses"]
+    for remat in BERTMODEL_REMAT[1:]:
+        worst = max(abs(a - b) / abs(b)
+                    for a, b in zip(runs[remat]["losses"], base))
+        log(f"[bertmodel] remat={remat!r} against remat=False: largest loss "
+            f"difference {worst:.3e} relative (limit "
+            f"{BERTMODEL_LOSS_RTOL:g})")
+    err, limit, fro = padded_witness(models)
+    log(f"[bertmodel] padded row (length {PAD_LEN} of 512, einsum, 2 layers) "
+        f"against the row cut to its length: max_abs_err {err:.3e} (limit "
+        f"{limit:.3e}), rel_fro {fro:.2e} (limit 2e-2)")
+    if not (math.isfinite(err) and err <= limit and fro <= 2e-2):
+        fail("[bertmodel] the padding mask changed a kept position's logits")
+    err, limit, fro = bridge_padded_check(hvd_torch)
+    log(f"[bertmodel] bridge: right-padded BERT call (2 layers, 2 x 128) on "
+        f"the card against its CPU lowering: max_abs_err {err:.3e} (limit "
+        f"{limit:.3e}), rel_fro {fro:.2e} (limit 2e-2)")
+    if not (math.isfinite(err) and err <= limit and fro <= 2e-2):
+        fail("[bertmodel] the bridge's padded call on the card disagrees "
+             "with its CPU lowering")
+    bad = bertmodel_verdict(runs, layers)
+    if bad:
+        fail("[bertmodel] " + "; ".join(bad))
+    launches = {}
+    for r in runs.values():
+        for per in r["launches"]:
+            for n, c in per.items():
+                launches[n] = launches.get(n, 0) + c
+    return rows, launches
+
+
+# ---------------------------------------------------------------------------
+# [trace]: the telemetry and trace planes in a one-rank launcher job
+# ---------------------------------------------------------------------------
+
+TRACE_STEPS = 5
+TRACE_COST_STEPS = 6
+# The knob settings timed against each other: (HVDTPU_TRACE,
+# HVDTPU_FLIGHT_RECORDER).
+TRACE_VARIANTS = (("0", "0"), ("0", "1"), ("1", "0"), ("1", "1"))
+
+
+def trace_child(out_path):
+    """The child of ``trace_phase`` (``chip_smoke.py --trace-child OUT``):
+    rank 0 of a one-rank job on the NCCL-delegated plane that found its
+    peers through the parent's KV store, with ``HVDTPU_TRACE=1`` and
+    ``HOROVOD_TPU_METRICS=1``. The full-width TransformerLM trains
+    TRACE_STEPS steps through DistributedOptimizer; then each knob setting
+    of TRACE_VARIANTS gets the tracer ``tracing.make_tracer`` builds for
+    it, in turn, for TRACE_COST_STEPS steps (twice, in opposite orders)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import basics, models, tracing
+    from horovod_tpu_torch.ops import flash_attention as fa
+    hvd.init()
+    rt = basics.runtime()
+    coord = rt.coordinator
+    if rt.mode != basics.MODE_SPMD or rt.backend.name != "nccl-global":
+        fail(f"[trace] expected a launcher job on the NCCL-delegated plane, "
+             f"got {rt.mode}, {rt.backend.name}")
+    if coord._tracer is None or coord._tracer._writer is None:
+        fail("[trace] HVDTPU_TRACE=1 built no shard writer")
+    cfg, model, step, x, y = transformer_setup(hvd, models)
+    res = {"losses": [], "ms": [], "launches": []}
+    fa.reset_launches()
+    for _ in range(TRACE_STEPS):
+        before = dict(fa.LAUNCHES)
+        t0 = time.perf_counter()
+        res["losses"].append(step(model, (x, y)).item())
+        res["ms"].append((time.perf_counter() - t0) * 1e3)
+        res["launches"].append({n: fa.LAUNCHES[n] - before.get(n, 0)
+                                for n in fa.LAUNCHES
+                                if fa.LAUNCHES[n] - before.get(n, 0)})
+    traced = coord._tracer
+    trace_dir = os.environ["HVDTPU_TRACE_DIR"]
+    cost = {f"TRACE={t} FLIGHT_RECORDER={f}": [] for t, f in TRACE_VARIANTS}
+    order = list(TRACE_VARIANTS) + list(reversed(TRACE_VARIANTS))
+    for i, (t, f) in enumerate(order):
+        os.environ.update(HVDTPU_TRACE=t, HVDTPU_FLIGHT_RECORDER=f,
+                          HVDTPU_TRACE_DIR=os.path.join(trace_dir,
+                                                        f"cost{i}"))
+        tracer = tracing.make_tracer(rt)
+        coord._tracer = rt.tracer = tracer
+        times = []
+        for _ in range(TRACE_COST_STEPS):
+            t0 = time.perf_counter()
+            step(model, (x, y)).item()
+            times.append((time.perf_counter() - t0) * 1e3)
+        if tracer is not None:
+            tracer.close()
+        cost[f"TRACE={t} FLIGHT_RECORDER={f}"] += times[1:]
+    os.environ.update(HVDTPU_TRACE="1", HVDTPU_FLIGHT_RECORDER="1",
+                      HVDTPU_TRACE_DIR=trace_dir)
+    coord._tracer = rt.tracer = traced
+    tracing._set_active(traced)
+    res["cost_ms"] = {k: _median(v) for k, v in cost.items()}
+    from horovod_tpu_torch import telemetry
+    snap = hvd.metrics_snapshot()
+    telemetry.archive_snapshot(snap)   # to HVDTPU_METRICS_SNAPSHOT
+    fams = snap["families"]
+    res["families"] = sorted(fams)
+    res["samples"] = {n: len(f["samples"]) for n, f in fams.items()}
+    hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def trace_verdict(res, shards, trace, report, metrics_text):
+    """The checks of ``[trace]``: the failures."""
+    from horovod_tpu_torch.tracing import merge
+    bad = []
+    if len(shards) != 1 or shards[0]["meta"].get("rank") != 0:
+        bad.append(f"expected one shard of rank 0, got "
+                   f"{[s['meta'] for s in shards]}")
+    else:
+        spans = merge.collective_spans(shards[0])
+        subs = [r for r in shards[0]["events"] if r.get("e") == "sub"]
+        if len(spans) != len(subs) or not subs:
+            bad.append(f"{len(subs)} submissions for {len(spans)} spans")
+        unpaired = [k for k, sp in spans.items()
+                    if sp["sub"] is None or sp["fin"] is None]
+        errs = [k for k, sp in spans.items() if sp["err"]]
+        if unpaired or errs:
+            bad.append(f"spans without sub/fin {unpaired[:5]}, failed "
+                       f"{errs[:5]}")
+    tracks = {e["args"]["name"] for e in trace["traceEvents"]
+              if e["ph"] == "M"}
+    if "rank 0" not in tracks:
+        bad.append(f"the merged trace has no track for rank 0: {tracks}")
+    steps = [s for s in report["steps"] if s["critical_path"]]
+    if len(steps) < TRACE_STEPS:
+        bad.append(f"critical paths for {len(steps)} steps, expected "
+                   f">= {TRACE_STEPS}")
+    # The launcher's registry is empty (metrics are off in its process):
+    # what it serves is the rank's pushed snapshot, rolled up as
+    # <family>_cluster gauges, one per family, with samples or not.
+    served = {line.split()[2] for line in metrics_text.splitlines()
+              if line.startswith("# TYPE ")}
+    coord = [n for n in res["families"] if n.startswith("hvd_coordinator_")
+             or n in ("hvd_collective_abort_total", "hvd_overlap_fraction")]
+    if len(coord) < 10:
+        bad.append(f"metrics_snapshot() names the coordinator families "
+                   f"{coord}")
+    missing = [n for n in res["families"] if n + "_cluster" not in served]
+    if missing:
+        bad.append(f"the launcher's /metrics lacks {missing}")
+    sampled = [n for n, k in res["samples"].items() if k]
+    if not {"hvd_coordinator_ops_total", "hvd_coordinator_cycle_seconds",
+            "hvd_backend_collective_seconds"} <= set(sampled):
+        bad.append(f"families with samples: {sampled}")
+    want = dict.fromkeys(("fwd", "bwd_dkv", "bwd_dq"), PAR_LM["layers"])
+    if any(per != want for per in res["launches"]):
+        bad.append(f"launches per step {res['launches']}, expected {want}")
+    if not all(math.isfinite(v) for v in res["losses"]) or \
+            not res["losses"][-1] < res["losses"][0]:
+        bad.append(f"losses {res['losses']} do not descend")
+    return bad
+
+
+def trace_phase():
+    """Drive ``telemetry/`` and ``tracing/``: a KV store as the launcher
+    runs it, and a one-rank job (``--trace-child``) that finds its peers
+    through it. After the job: the launcher's ``/metrics``, the shard
+    collected from the store, merged and analysed. Returns the kernels'
+    launches in the traced steps."""
+    import tempfile
+    import urllib.request
+    from horovod_tpu_torch.runner import http_server
+    from horovod_tpu_torch.tracing import analyze, merge
+    token = http_server.new_job_token()
+    store = http_server.KVStoreServer(job_token=token, addr="127.0.0.1")
+    store.start()
+    try:
+        with tempfile.TemporaryDirectory(prefix="hvd-trace-") as tmp:
+            out = os.path.join(tmp, "trace.json")
+            env = _one_rank_env(
+                HVDTPU_TRACE="1", HOROVOD_TPU_METRICS="1",
+                HVDTPU_METRICS_PUSH_INTERVAL="1",
+                HVDTPU_TRACE_DIR=os.path.join(tmp, "traces"),
+                HVDTPU_METRICS_SNAPSHOT=os.path.join(tmp, "metrics.json"),
+                HVDTPU_RENDEZVOUS_ADDR="127.0.0.1",
+                HVDTPU_RENDEZVOUS_PORT=str(store.port),
+                HVDTPU_JOB_TOKEN=token)
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--trace-child",
+                 out], env=env, timeout=600)
+            if proc.returncode != 0:
+                fail(f"[trace] the one-rank job exited {proc.returncode}")
+            with open(out) as f:
+                res = json.load(f)
+            with open(os.path.join(tmp, "metrics.json")) as f:
+                archived = sorted(json.load(f)["families"])
+            if archived != res["families"]:
+                fail(f"[trace] the archived snapshot names {archived}, "
+                     f"metrics_snapshot() {res['families']}")
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{store.port}/metrics")
+            req.add_header(http_server.AUTH_HEADER, token)
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                metrics_text = resp.read().decode()
+            paths = merge.collect_shards("127.0.0.1", store.port, token, 0,
+                                         os.path.join(tmp, "collected"),
+                                         max_ranks=1)
+            shards = merge.load_paths(paths, kinds=(merge.SHARD_PREFIX,))
+            trace = json.loads(json.dumps(merge.merge_shards(shards)))
+            report = analyze.analyze(shards)
+    finally:
+        store.stop()
+    n_sub = sum(1 for s in shards for r in s["events"] if r.get("e") == "sub")
+    log(f"[trace] TransformerLM {PAR_LM['layers']} layers, batch "
+        f"{TRAIN_BATCH} x 512, {TRACE_STEPS} AdamW steps under HVDTPU_TRACE=1"
+        f" and HOROVOD_TPU_METRICS=1: losses "
+        f"{[round(v, 6) for v in res['losses']]}; {n_sub} submissions "
+        f"traced, {report['collectives']} collective spans; merged trace "
+        f"{len(trace['traceEvents'])} events; {len(report['steps'])} steps "
+        "analysed")
+    for st in report["steps"][:TRACE_STEPS]:
+        log(f"  step {st['step']}: {st['collectives']} collectives, "
+            f"{(st['duration_s'] or 0) * 1e3:.2f} ms from first submit to "
+            f"last completion, critical path {len(st['critical_path'])} "
+            f"collectives ({st['critical_comm_s'] * 1e3:.2f} ms in flight, "
+            f"{st['critical_gap_s'] * 1e3:.2f} ms between)")
+    log(f"[trace] the launcher's /metrics: "
+        f"{len(metrics_text.splitlines())} lines; metrics_snapshot() names "
+        f"{len(res['families'])} families")
+    log("[trace] cost of the plane (claims no gain; median step ms of "
+        f"{2 * (TRACE_COST_STEPS - 1)} steps, two rounds in opposite "
+        "orders, metrics on throughout): " + "; ".join(
+            f"{k} {v:.1f}" for k, v in res["cost_ms"].items()))
+    bad = trace_verdict(res, shards, trace, report, metrics_text)
+    if bad:
+        fail("[trace] " + "; ".join(bad))
+    launches = {}
+    for per in res["launches"]:
+        for n, c in per.items():
+            launches[n] = launches.get(n, 0) + c
+    return launches
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -3819,11 +4289,22 @@ def main():
     launches.update(par_launches)
     results.update(par_rows)
     shard_launches, shard_rows = sharded_phase(fa, flush_buf)
-    del flush_buf
     log("[launches] [sharded] " + ", ".join(
         f"{n}={c}" for n, c in shard_launches.items()))
     for name, by_tp in shard_rows.items():
         results[name].update(by_tp)
+    torch.cuda.empty_cache()
+    bert_rows, bertmodel_launches = bertmodel_phase(hvd, hvd_torch, fa,
+                                                    models, flush_buf)
+    del flush_buf
+    log("[launches] [bertmodel] " + ", ".join(
+        f"{n}={c}" for n, c in bertmodel_launches.items()))
+    for name, row in bert_rows.items():
+        results[name].update(row)
+    torch.cuda.empty_cache()
+    trace_launches = trace_phase()
+    log("[launches] [trace] " + ", ".join(
+        f"{n}={c}" for n, c in trace_launches.items()))
     log("[launches] " + ", ".join(f"{n}={c}" for n, c in launches.items()))
     if set(launches) != set(KERNELS) or not all(launches.values()):
         fail(f"a kernel was not launched on its path: {launches}")
@@ -3863,5 +4344,7 @@ if __name__ == "__main__":
         parallel_child(sys.argv[2])
     elif sys.argv[1:2] == ["--sharded-child"]:
         sharded_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--trace-child"]:
+        trace_child(sys.argv[2])
     else:
         main()

@@ -12,7 +12,8 @@ nor anything of ``horovod_tpu``.
 """
 
 from .basics import (cross_rank, cross_size, device, init, is_initialized,
-                     local_rank, local_size, rank, shutdown, size)
+                     local_rank, local_size, metrics_snapshot, rank,
+                     shutdown, size)
 from . import elastic  # noqa: F401  (hvd.elastic.run / State / ObjectState)
 from .exceptions import (CheckpointCorruptError, CollectiveAbortError,
                          CollectiveMismatchError, DuplicateNameError,

@@ -24,7 +24,7 @@ import time
 
 import torch
 
-from .. import native
+from .. import native, tracing
 from ..exceptions import HorovodInternalError, StalledTensorError
 from ..ops import reduce_ops
 from ..telemetry import core as telemetry
@@ -155,6 +155,12 @@ class TcpBackend:
             if self._metrics_on:
                 pending.t0 = time.perf_counter()
                 pending.nbytes = telemetry.payload_nbytes(entry.tensors)
+            # Trace plane: the instant this entry entered the native
+            # negotiation; on the merged trace the gap between this and
+            # the peers' marks is the negotiation wait (one global read
+            # and a None check when the plane is off).
+            tracing.trace_event("neg", entry.name or entry.kind,
+                                o=getattr(entry, "corr", None))
             self._pending.append(pending)
         except Exception as exc:  # noqa: BLE001 - surfaced via the handle
             if self.entry_done_cb:

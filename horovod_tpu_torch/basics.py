@@ -72,6 +72,8 @@ class Runtime:
         self.process_set_table = None   # attached by process_sets._setup
         self.coordinator = None         # attached by init
         self.timeline = None            # HVDTPU_TIMELINE or start_timeline
+        self.tracer = None              # tracing.Tracer, set by the coordinator
+        self.metrics_pusher = None      # telemetry.MetricsPusher (launcher)
         self._shutdown = False
 
     def check_alive(self):
@@ -201,6 +203,16 @@ def init(comm=None, process_sets=None, device=None):
                 timeline_path, mark_cycles=envparse.get_bool(
                     envparse.TIMELINE_MARK_CYCLES))
             runtime.timeline.start()
+        # In a launcher job with metrics on, this rank's snapshot goes to
+        # the launcher's KV store on a timer: its /metrics route serves the
+        # cluster roll-up.
+        if envparse.get_bool(envparse.METRICS) and rdv_cfg is not None:
+            from .telemetry import MetricsPusher
+            addr, port, token = rdv_cfg
+            runtime.metrics_pusher = MetricsPusher(
+                addr, port, token, topology.rank,
+                interval_s=envparse.get_float(
+                    envparse.METRICS_PUSH_INTERVAL, 5.0)).start()
         get_logger().info("init: %s mode rank=%d size=%d device=%s "
                           "backend=%s", mode, topology.rank, topology.size,
                           dev, backend.name)
@@ -223,6 +235,21 @@ def shutdown():
             _runtime.coordinator.stop()
         if _runtime.timeline is not None:
             _runtime.timeline.stop()
+        if _runtime.tracer is not None:
+            # Flush and close this cohort's trace shard and push it to the
+            # launcher's store; an elastic re-init opens a new shard under
+            # the new membership version.
+            _runtime.tracer.close()
+            from . import tracing
+            if tracing.active() is _runtime.tracer:
+                tracing._set_active(None)
+            _runtime.tracer = None
+        if _runtime.metrics_pusher is not None:
+            # A last push, so that shutdown-time counters reach the
+            # launcher before the store loses this rank.
+            _runtime.metrics_pusher.stop()
+            _runtime.metrics_pusher = None
+        _maybe_dump_metrics()
         with _timed("shutdown", "backend"):
             _runtime.backend.close()
         from . import process_sets
@@ -230,6 +257,34 @@ def shutdown():
         _runtime._shutdown = True
         _runtime = None
         LAST_TIMES["shutdown"]["total"] = (time.perf_counter() - t0) * 1e3
+
+
+def _maybe_dump_metrics():
+    """Write a last JSON snapshot to ``HVDTPU_METRICS_DUMP`` (if set), the
+    file the telemetry CLI's ``diff`` reads."""
+    path = envparse.get_str(envparse.METRICS_DUMP, "")
+    if not path or not envparse.get_bool(envparse.METRICS):
+        return
+    from . import telemetry
+    try:
+        with open(path, "w") as f:
+            f.write(telemetry.render_json(metrics_snapshot(), indent=1))
+    except OSError as exc:
+        get_logger().warning("could not write metrics dump %s: %s",
+                             path, exc)
+
+
+def metrics_snapshot():
+    """JSON-able snapshot of the metrics registry, with the rank, size and
+    mode while the runtime is up. Its families are empty unless
+    ``HOROVOD_TPU_METRICS`` is on."""
+    from . import telemetry
+    snap = telemetry.snapshot()
+    if _runtime is not None and not _runtime._shutdown:
+        snap["rank"] = _runtime.topology.rank
+        snap["size"] = _runtime.topology.size
+        snap["mode"] = _runtime.mode
+    return snap
 
 
 atexit.register(shutdown)

@@ -134,7 +134,7 @@ class TensorEntry:
     __slots__ = ("name", "kind", "tensors", "op", "root_rank", "splits",
                  "prescale", "postscale", "process_set", "handle",
                  "enqueue_time", "ready", "device", "site", "codec",
-                 "uneven", "guard_token")
+                 "uneven", "guard_token", "corr")
 
     def __init__(self, name, kind, tensors, process_set, op=None,
                  root_rank=None, splits=None, prescale=None, postscale=None,
@@ -163,6 +163,9 @@ class TensorEntry:
         # Set by the consistency guard when this submission is one it
         # verifies before dispatch: (name, occurrence, digest).
         self.guard_token = None
+        # The trace plane's occurrence number of this name (its
+        # correlation key across ranks), stamped by Tracer.on_submit.
+        self.corr = None
         self.device = tensors[0].device if tensors else None
         self.ready = None
         if self.device is not None and self.device.type == "cuda":
@@ -248,13 +251,43 @@ class Coordinator:
         self._m_queue_depth = telemetry.gauge(
             "hvd_coordinator_queue_depth",
             "Entries drained from the submission queue by the last cycle")
+        self._m_queue_wait_s = telemetry.histogram(
+            "hvd_coordinator_queue_wait_seconds",
+            "Time an entry waited between submit() and dispatch")
         self._m_dispatch_s = telemetry.histogram(
             "hvd_coordinator_dispatch_seconds",
             "Backend dispatch latency per operation (span duration)",
             labelnames=("kind",))
+        self._m_ops = telemetry.counter(
+            "hvd_coordinator_ops_total",
+            "Operations dispatched to the backend", labelnames=("kind",))
         self._m_fused_bytes = telemetry.counter(
             "hvd_coordinator_fused_bytes_total",
             "Payload bytes through the fusion plane", labelnames=("dtype",))
+        # The port's fusion pads nothing (a fused buffer is the tensors
+        # concatenated): padding stays 0 and the efficiency 1.
+        self._m_fusion_payload = telemetry.counter(
+            "hvd_coordinator_fusion_payload_bytes_total",
+            "Fused payload bytes (excluding atomic-unit padding)")
+        self._m_fusion_padding = telemetry.counter(
+            "hvd_coordinator_fusion_padding_bytes_total",
+            "Bytes of atomic-unit padding the fusion plane would add")
+        self._m_fusion_eff = telemetry.gauge(
+            "hvd_coordinator_fusion_efficiency",
+            "payload / (payload + padding) of the last fused buffer")
+        # The JAX package's bucketed-overlap families, under their names
+        # and schema. Their source, the overlap plane (HVDTPU_OVERLAP),
+        # is not ported: the port's cycle thread never blocks on a
+        # collective (NCCL runs on the backend's stream), so they hold no
+        # sample.
+        self._m_overlap_fraction = telemetry.gauge(
+            "hvd_overlap_fraction",
+            "Share of the last cycle's collective in-flight time hidden "
+            "under other work (issue/prep of later buckets) rather than "
+            "blocking the cycle thread")
+        self._m_overlap_hidden_s = telemetry.histogram(
+            "hvd_overlap_hidden_seconds",
+            "Per-bucket collective time hidden under later dispatches")
         self._m_stalled = telemetry.gauge(
             "hvd_coordinator_stalled_ops",
             "In-flight operations older than the stall threshold")
@@ -272,6 +305,13 @@ class Coordinator:
         from .ops import sparse as sparse_mod
         self._compression = compression_mod.make_plane(runtime)
         self._sparse = sparse_mod.make_plane()
+        # Cross-rank trace plane (tracing/): None when HVDTPU_TRACE is off
+        # and the flight recorder is disabled; then submit and completion
+        # pay one attribute check. With only the (default-on) flight
+        # recorder, each event is a bounded deque append.
+        from . import tracing
+        self._tracer = tracing.make_tracer(runtime)
+        runtime.tracer = self._tracer
 
     # -- lifecycle ---------------------------------------------------------
     def start(self):
@@ -336,6 +376,11 @@ class Coordinator:
             # Publish the digest before the entry can reach a cycle, so
             # that a peer's verify never waits for it; outside the lock.
             self._guardian.on_submit(entry)
+        if self._tracer is not None:
+            # Stamp the correlation key (name x occurrence x elastic
+            # version) and record the submission: the cross-rank merge
+            # joins every rank's span on this key.
+            self._tracer.on_submit(entry)
         key = (entry.process_set.process_set_id, entry.name)
         if entry.name and entry.site is None:
             entry.site = format_user_frame(skip=3)
@@ -372,8 +417,15 @@ class Coordinator:
 
     def _entry_done(self, entry, ok=True):
         """Native-plane completion callback: release the name before the
-        backend completes the handle."""
+        backend completes the handle, and record the trace completion
+        (``ok=False`` on failure paths, so that merged traces and
+        postmortems flag the failed collective). A response the native
+        core fused completes each of its entries here: every entry keeps
+        its own span, from its submission to the sweep that found the
+        response done, so the entries of one response share their end."""
         self._release_name(entry)
+        if self._tracer is not None:
+            self._tracer.on_complete(entry, ok=ok)
 
     # -- background cycle --------------------------------------------------
     def _loop(self):
@@ -430,6 +482,8 @@ class Coordinator:
             cycle_ts_us = time.perf_counter_ns() // 1000
             if self._guardian is not None and batch:
                 batch = self._verify_consistency(batch)
+            if self._metrics_on and batch:
+                self._record_dispatch(batch)
             try:
                 for e in batch:
                     backend.submit_entry(e)
@@ -592,6 +646,12 @@ class Coordinator:
         exc = CollectiveAbortError(diagnostic)
         self._log.error("%s", diagnostic)
         self._m_aborts.inc()
+        if self._tracer is not None:
+            # The ring still holds the events before the abort, and every
+            # rank that joins the coordinated abort dumps its own: the
+            # postmortem bundle is the last events of every rank.
+            self._tracer.event("guardian", "abort", detail=diagnostic[:400])
+            self._tracer.dump_postmortem("collective_abort")
         self._watchdog.post_abort(diagnostic)
         with self._lock:
             victims = self._queue
@@ -631,6 +691,12 @@ class Coordinator:
                 self._guardian.verify(e)
             except (CollectiveMismatchError, CollectiveAbortError) as exc:
                 self._log.error("%s", exc)
+                if self._tracer is not None:
+                    if isinstance(exc, CollectiveMismatchError):
+                        self._tracer.event("guardian", "mismatch",
+                                           coll=e.name, detail=str(exc)[:400])
+                        self._tracer.dump_postmortem("collective_mismatch")
+                    self._tracer.on_complete(e, ok=False)
                 self._release_name(e)
                 e.handle._fail(exc)
                 continue
@@ -715,14 +781,13 @@ class Coordinator:
     def _execute_allreduce_bucket(self, backend, bucket, timeline):
         e0 = bucket[0]
         names = [e.name for e in bucket]
+        if self._metrics_on:
+            self._record_dispatch(bucket, fused=True)
         try:
             with tele_span(names, "FUSED_ALLREDUCE", timeline=timeline,
                            histogram=self._m_dispatch_s.labels(
                                kind="fused_allreduce")):
                 flat = [t for e in bucket for t in e.tensors]
-                if self._metrics_on:
-                    self._m_fused_bytes.labels(dtype=str(flat[0].dtype)).inc(
-                        sum(_nbytes(t) for t in flat))
                 with self._issue(bucket):
                     if e0.codec is not None:
                         results = self._run_compressed(backend, bucket, flat,
@@ -741,6 +806,8 @@ class Coordinator:
                     # when the response reaches the op layer).
                     self._release_name(e)
                     e.handle._complete(results[i:i + k], done)
+                    if self._tracer is not None:
+                        self._tracer.on_complete(e)
                     self.tensors_processed += k
                     self.bytes_processed += sum(_nbytes(t)
                                                 for t in e.tensors)
@@ -749,6 +816,8 @@ class Coordinator:
             self._log.error("fused allreduce failed: %s", exc)
             for e in bucket:
                 e.handle._fail(_wrap_error(exc))
+                if self._tracer is not None:
+                    self._tracer.on_complete(e, ok=False)
 
     def _run_compressed(self, backend, bucket, flat, e0):
         """One compressed bucket. Cast codecs (fp16/bf16, from the env
@@ -776,6 +845,8 @@ class Coordinator:
         return results
 
     def _run_single(self, backend, e, timeline):
+        if self._metrics_on:
+            self._record_dispatch([e])
         try:
             with tele_span([e.name], e.kind.upper(), timeline=timeline,
                            histogram=self._m_dispatch_s.labels(
@@ -785,9 +856,31 @@ class Coordinator:
                     done = self._done_event()
                 self._release_name(e)
                 e.handle._complete(out, done)
+                if self._tracer is not None:
+                    self._tracer.on_complete(e)
         except Exception as exc:  # noqa: BLE001
             self._log.error("%s failed for %s: %s", e.kind, e.name, exc)
             e.handle._fail(_wrap_error(exc))
+            if self._tracer is not None:
+                self._tracer.on_complete(e, ok=False)
+
+    def _record_dispatch(self, entries, fused=False):
+        """Dispatch accounting (metrics on only): each entry's wait
+        between submit() and dispatch, the operations by kind and, for a
+        fused bucket, its payload bytes by dtype."""
+        now = time.monotonic()
+        for e in entries:
+            self._m_queue_wait_s.observe(now - e.enqueue_time)
+            self._m_ops.labels(kind=e.kind).inc()
+        if not fused:
+            return
+        payload = sum(_nbytes(t) for e in entries for t in e.tensors)
+        self._m_fused_bytes.labels(
+            dtype=str(entries[0].tensors[0].dtype)).inc(payload)
+        self._m_fusion_payload.inc(payload)
+        self._m_fusion_padding.inc(0)   # nothing padded
+        if payload:
+            self._m_fusion_eff.set(1.0)
 
     def _dispatch_single(self, backend, e):
         if e.kind == "allgather":

@@ -34,7 +34,7 @@ import signal
 import threading
 import time
 
-from . import basics
+from . import basics, tracing
 from .exceptions import (PREEMPT_EXIT_CODE, RESTART_EXIT_CODE,
                          CollectiveAbortError, HorovodInternalError,
                          HostsUpdatedInterrupt)
@@ -409,6 +409,9 @@ def run_fn(func, reset=_reset):
                 return func(state, *args, **kwargs)
             except HorovodInternalError as e:
                 aborted = isinstance(e, CollectiveAbortError)
+                tracing.trace_event(
+                    "elastic", "restore",
+                    cause="collective_abort" if aborted else "internal")
                 if aborted:
                     # The stuck-collective watchdog aborted the in-flight
                     # operations (guardian.py); its diagnostic names the
@@ -431,6 +434,7 @@ def run_fn(func, reset=_reset):
                 if _restart_mode():
                     _persist_and_exit(state, log, rereq=True)
             except HostsUpdatedInterrupt as e:
+                tracing.trace_event("elastic", "hosts_updated")
                 log.info("elastic: hosts updated; re-rendezvousing")
                 skip_sync = e.skip_sync
                 if preempt_requested():

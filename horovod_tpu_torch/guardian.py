@@ -454,12 +454,22 @@ class Watchdog:
                 missing[name] = sorted(absent) + [f"{r}?" for r in
                                                   unreported]
         self.last_missing = missing
+        if missing:
+            # Flight-recorder breadcrumb: the postmortem bundle shows what
+            # this rank believed about its peers before the abort.
+            from . import tracing
+            for name, ranks in sorted(missing.items()):
+                tracing.trace_event("guardian", "stall_observe", coll=name,
+                                    missing=[str(r) for r in ranks])
         return missing, self.board.get(_ABORT_KEY)
 
     def should_abort(self, oldest_age):
         return self.timeout_s > 0 and oldest_age > self.timeout_s
 
     def post_abort(self, diagnostic):
+        from . import tracing
+        tracing.trace_event("guardian", "post_abort",
+                            detail=str(diagnostic)[:200])
         if self.board is not None:
             self.board.put(_ABORT_KEY, diagnostic)
 

@@ -15,13 +15,22 @@ same way). They compute what the flax model computes:
   ``running_var`` (flax's ``batch_stats``; torch's ``BatchNorm2d`` keeps
   the unbiased one); the last BatchNorm of each block starts at scale 0;
 - ``process_set`` (flax's ``axis_name``): the statistics span the set's
-  whole batch, summed through the port's collectives.
+  whole batch, summed through the port's collectives;
+- ``remat`` (``False``, ``True``/``"full"``, ``"dots"``, flax's
+  ``nn.remat`` of each block, ``_remat.py``): the block is recomputed in
+  the backward. ``"dots"`` is JAX's ``dots_with_no_batch_dims_saveable``
+  policy, which keeps only dense projections' outputs: a block holds
+  convolutions, which are no ``dot_general``, so ``"dots"`` keeps nothing
+  of it and recomputes as much as ``True``. The running statistics move
+  once per step, as flax keeps the forward's ``batch_stats``: the
+  recompute normalises with its batch's statistics and updates nothing,
+  and with a ``process_set`` it reuses the forward's set-wide sums, so it
+  submits no collective.
 
 Submodule names mirror flax's (``conv_init``, ``bn_init``,
 ``BottleneckBlock_<i>``, ``Conv_<j>``, ``BatchNorm_<j>``, ``conv_proj``,
 ``norm_proj``, ``Dense_0``), so that :func:`params_from_flax` maps a flax
-checkpoint onto the ``state_dict`` name for name. ``remat`` is not ported
-(ROADMAP queue A, item 5).
+checkpoint onto the ``state_dict`` name for name.
 """
 
 import functools
@@ -32,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import _remat
 from ._flax import state_dict_from_flax
 
 # flax's lecun_normal: truncated normal, variance 1/fan_in; the stddev is
@@ -110,23 +120,32 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        self.num_batches_tracked.add_(1)
         m = self.momentum
         if self.process_set is not None:
+            # Under remat the function reuses the forward's sums and
+            # updates no statistic in the recompute.
+            if not _remat.recomputing():
+                self.num_batches_tracked.add_(1)
             from ..torch.sync_batch_norm import _SyncBatchNormFn
             return _SyncBatchNormFn.apply(
                 x, self.weight, self.bias, self.running_mean,
                 self.running_var, self.eps, m, self.process_set, False)
-        n = x.numel() // x.shape[1]
-        # torch's update is (1 - m) prev + m u, u the unbiased variance
-        # b n / (n - 1); flax keeps (1 - m) prev + m b. torch updates a
-        # copy (autograd may keep the variance it was given).
-        updated = self.running_var.clone()
-        out = F.batch_norm(x, self.running_mean, updated, self.weight,
-                           self.bias, True, m, self.eps)
-        with torch.no_grad():
-            self.running_var.mul_((1 - m) / n).add_(updated,
-                                                    alpha=(n - 1) / n)
+        # torch updates copies of the running statistics (autograd may keep
+        # the variance it was given), which are written back after: torch's
+        # variance update is (1 - m) prev + m u, u the unbiased variance
+        # b n / (n - 1), and flax keeps (1 - m) prev + m b. A remat block's
+        # recompute writes nothing back: it runs no aten op its forward
+        # did not (selective checkpointing replays the forward's ops).
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, m,
+                           self.eps)
+        if not _remat.recomputing():
+            n = x.numel() // x.shape[1]
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                self.running_mean.copy_(mean)
+                self.running_var.mul_((1 - m) / n).add_(var,
+                                                        alpha=(n - 1) / n)
         return out
 
 
@@ -212,11 +231,13 @@ class ResNet(nn.Module):
 
     def __init__(self, stage_sizes, block_cls, num_classes=1000,
                  num_filters=64, dtype=torch.bfloat16, process_set=None,
-                 stem="conv", in_channels=3, device=None, generator=None):
+                 remat=False, stem="conv", in_channels=3, device=None,
+                 generator=None):
         super().__init__()
         if stem not in ("conv", "space_to_depth"):
             raise ValueError(f"unknown stem {stem!r}")
         self.dtype = dtype
+        self.remat = _remat.check_mode(remat)
         self.stem = stem
         conv = functools.partial(Conv, dtype=dtype, device=device,
                                  generator=generator)
@@ -251,7 +272,7 @@ class ResNet(nn.Module):
         pads = same_pads(x.shape[-2:], (3, 3), (2, 2))
         x = F.max_pool2d(_pad(x, pads, float("-inf")), 3, 2)
         for block in self.blocks:
-            x = block(x)
+            x = _remat.call(self.remat, block, x)
         x = x.mean(dim=(2, 3))
         return self.Dense_0(x.to(self.Dense_0.weight.dtype))
 

@@ -117,6 +117,14 @@ def _m_state_bytes():
         "(moments + scalars; ~1/n of the replicated footprint)")
 
 
+def _m_reshard_hist():
+    from ..telemetry import core as telemetry
+    return telemetry.histogram(
+        "hvd_zero_reshard_seconds",
+        "Deterministic optimizer-state reshard on elastic world-size "
+        "change")
+
+
 def _host_tensor(t):
     """A CPU copy of ``t`` in a dtype numpy has (16-bit floats other than
     float16 widen exactly to float32)."""
@@ -643,7 +651,14 @@ class ZeroRuntime:
         """Place this rank's windows of a :meth:`full_state_dict` under the
         current plan, at this world size (a fresh plan when the elastic
         version moved since this runtime planned); the error-feedback
-        residuals start from zero."""
+        residuals start from zero. Observed into
+        ``hvd_zero_reshard_seconds``."""
+        from ..telemetry import span as tele_span
+        with tele_span(["zero"], "ZERO_RESHARD",
+                       histogram=_m_reshard_hist()):
+            self._load_full_state_dict(state)
+
+    def _load_full_state_dict(self, state):
         z = state["zero"]
         if z["slots"] is None:
             raise ValueError(

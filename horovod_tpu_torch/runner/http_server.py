@@ -10,14 +10,21 @@ header, the analog of the reference's HMAC-signed service messages
 (horovod/runner/common/util/secret.py). The wire protocol is the JAX
 package's: either package's client talks to either package's server.
 
+Besides the store, behind the same token: ``/metrics`` (Prometheus text of
+this process's registry and, once ranks have pushed their snapshots into
+the ``metrics`` scope, their cluster roll-up), ``/metrics.json``
+(``{"local": ..., "ranks": {rank: snapshot}}``) and ``/clock`` (this
+process's wall clock, for the trace plane's offset estimate).
+
 Not ported: the control-plane HA parts (term headers and fences, the
-journal and its ``/journal`` route, the primary hint), the metrics
-endpoints, the ``/clock`` route and the serving routes (ROADMAP queue A,
-item 13 and item 14).
+journal and its ``/journal`` route, the primary hint) and the serving
+routes (ROADMAP queue A, item 13 and item 14).
 """
 
+import json
 import secrets
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 AUTH_HEADER = "X-Hvdtpu-Job-Token"
@@ -48,6 +55,12 @@ class _KVStoreHandler(BaseHTTPRequestHandler):
     def do_GET(self):  # noqa: N802 (http.server API)
         if not self._authorized():
             return
+        parts = [p for p in self.path.split("/") if p]
+        if len(parts) == 1 and parts[0] in ("metrics", "metrics.json"):
+            return self._serve_metrics(parts[0] == "metrics.json")
+        if len(parts) == 1 and parts[0] == "clock":
+            # The clock reference of the trace plane (tracing/clock.py).
+            return self._reply(200, repr(time.time()).encode())
         scope, key = self._split()
         if scope is None:
             return self._reply(400, b"")
@@ -84,6 +97,32 @@ class _KVStoreHandler(BaseHTTPRequestHandler):
             else:
                 self.server.store.get(scope, {}).pop(key, None)
         self._reply(200, b"")
+
+    def _serve_metrics(self, json_mode):
+        """This process's registry as Prometheus v0.0.4 text, followed by
+        the cluster roll-up of the ranks' pushed snapshots; or, for
+        ``/metrics.json``, ``{"local": ..., "ranks": {rank: snapshot}}``."""
+        from ..telemetry import (METRICS_SCOPE, PROMETHEUS_CONTENT_TYPE,
+                                 aggregate_snapshots, parse_rank_snapshots,
+                                 render_prometheus, snapshot)
+        local = snapshot()
+        with self.server.store_lock:
+            raw = dict(self.server.store.get(METRICS_SCOPE, {}))
+        snaps = parse_rank_snapshots(raw)
+        if json_mode:
+            body = json.dumps({"local": local, "ranks": snaps}).encode()
+            ctype = "application/json"
+        else:
+            text = render_prometheus(local)
+            if snaps:
+                text += render_prometheus(aggregate_snapshots(snaps))
+            body = text.encode()
+            ctype = PROMETHEUS_CONTENT_TYPE
+        self.send_response(200)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
 
     def _reply(self, code, body):
         self.send_response(code)

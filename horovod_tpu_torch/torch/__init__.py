@@ -27,9 +27,8 @@ around the collective; ``int8``/``fp8`` mark the entry for the data
 plane's quantized pipeline), ``op=Adasum`` (the native core's VHDD on the
 host; CUDA tensors staged through pinned memory) and
 ``sparse_allreduce_async`` for COO gradients (``HVDTPU_SPARSE`` picks
-allgather-of-slices or densify per tensor). Not ported yet, and raising
-``NotImplementedError`` with its ROADMAP item: ``metrics_snapshot``
-(item 13).
+allgather-of-slices or densify per tensor). ``metrics_snapshot()`` is the
+runtime's metrics registry (``HOROVOD_TPU_METRICS``), as JSON-able data.
 """
 
 import functools
@@ -60,11 +59,6 @@ Adasum = reduce_ops.Adasum
 Min = reduce_ops.Min
 Max = reduce_ops.Max
 Product = reduce_ops.Product
-
-
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue A, item {item})")
 
 
 def _spmd():
@@ -100,8 +94,7 @@ def stop_timeline():
         rt.timeline = None
 
 
-def metrics_snapshot():
-    raise _not_ported("metrics_snapshot (telemetry)", 13)
+metrics_snapshot = basics.metrics_snapshot
 
 
 def _op(op, average):

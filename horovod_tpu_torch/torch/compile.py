@@ -15,10 +15,15 @@ contract:
   bf16 inputs in fp32 already);
 - attention routing: while the module runs, a ``TorchFunctionMode`` sends
   ``F.scaled_dot_product_attention`` to the repo's flash kernels (with
-  attention dropout as an explicit keep-mask or a Philox seed). On CUDA
-  tensors a call the kernels cannot take (a mask, a head dim above 128)
-  raises; on CPU tensors it takes the einsum lowering with a one-time
-  warning;
+  attention dropout as an explicit keep-mask or a Philox seed). A call
+  with an ``attn_mask`` (a padded batch) takes the einsum lowering, as the
+  JAX bridge does with a mask that is not a compile-time constant: on
+  CUDA tensors always (the mask is never read on the host), on CPU tensors
+  unless the mask keeps every position. A user whose mask keeps every
+  position gets the kernels by passing ``attn_mask=None``. On CUDA tensors
+  a call the kernels cannot take for its shapes (a head dim above 128)
+  raises; on CPU tensors it takes the einsum lowering. Either fallback
+  warns once;
 - explicit randomness: ``rng`` is an int seed, the counterpart of the JAX
   key. One seed gives the same dropout patterns on every run.
 
@@ -99,39 +104,46 @@ def _dropout(x, p, rand):
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
-def _flash_unsupported(q, k, v, attn_mask):
-    """Why the flash kernels cannot take this attention call, or None: they
-    take 4-D q/k/v of one batch and head count and equal head dims up to
-    128, and no mask (a CPU mask that keeps everything is dropped)."""
+def _shapes_unsupported(q, k, v):
+    """Why the flash kernels cannot take these q/k/v, or None: they take
+    4-D q/k/v of one batch and head count and equal head dims up to
+    128."""
     if not (q.dim() == k.dim() == v.dim() == 4
             and q.shape[:2] == k.shape[:2] == v.shape[:2]
             and q.shape[-1] == k.shape[-1] == v.shape[-1]
             and q.shape[-1] <= 128):
         return (f"q/k/v shapes {tuple(q.shape)}/{tuple(k.shape)}/"
                 f"{tuple(v.shape)}")
-    if _resolve_static_mask(attn_mask) is not None:
-        return (f"mask is not statically all-keep: {attn_mask.dtype} "
-                f"attn_mask of shape {tuple(attn_mask.shape)}")
     return None
+
+
+def _mask_unsupported(attn_mask):
+    """Why ``attn_mask`` keeps the call off the kernels, or None: any mask
+    but a CPU one that keeps every position (which is dropped)."""
+    if _resolve_static_mask(attn_mask) is None:
+        return None
+    return (f"mask is not statically all-keep: {attn_mask.dtype} "
+            f"attn_mask of shape {tuple(attn_mask.shape)}")
 
 
 def _sdpa(rand, query, key, value, attn_mask=None, dropout_p=0.0,
           is_causal=False, scale=None):
     """``F.scaled_dot_product_attention`` semantics (bool masks keep where
-    True, float masks add). CUDA tensors run on the flash kernels, and an
-    attention call they cannot take raises. CPU tensors take the kernels'
-    plain versions where ``HVDTPU_BRIDGE_FLASH`` asks for them and the call
-    fits; else the einsum lowering, with a one-time warning when the call
-    does not fit. ``rand`` is None outside training: then there is no
-    dropout."""
+    True, float masks add). A call with a mask takes the einsum lowering
+    (on CUDA tensors whatever the mask holds: it is never read on the
+    host). Else CUDA tensors run on the flash kernels, and q/k/v they
+    cannot take raise; CPU tensors take the kernels' plain versions where
+    ``HVDTPU_BRIDGE_FLASH`` asks for them and the call fits, else the
+    einsum lowering. A call that does not fit warns once per reason.
+    ``rand`` is None outside training: then there is no dropout."""
     q, k, v = query, key, value
-    unsupported = _flash_unsupported(q, k, v, attn_mask)
-    if q.is_cuda and unsupported:
+    bad_shapes = _shapes_unsupported(q, k, v)
+    if q.is_cuda and bad_shapes:
         raise NotImplementedError(
             f"tpu_compile: the flash kernels cannot take this attention call "
-            f"({unsupported}); on CUDA tensors they need 4-D q/k/v with "
-            f"equal head dims up to 128 and attn_mask=None (a CUDA mask is "
-            f"never read: that would make the host wait for the device)")
+            f"({bad_shapes}); on CUDA tensors they need 4-D q/k/v with "
+            f"equal head dims up to 128")
+    unsupported = bad_shapes or _mask_unsupported(attn_mask)
     if not unsupported and fa.bridge_flash_enabled(q.device):
         dm = seed = None
         rate = 0.0

@@ -10,11 +10,17 @@ it on the host would make the host wait for the device at every layer.
 Statistics are computed in float32 whatever the input's dtype; the output
 has the input's dtype. Parameter gradients stay local (the
 DistributedOptimizer reduces them like any other gradient).
+
+Inside a remat block of the port's models (``models/_remat.py``) the
+forward leaves its set-wide sums in the block's queue and the recompute
+takes them from there: the recompute submits no collective and updates no
+running statistic.
 """
 
 import torch
 from torch.nn.modules.batchnorm import _BatchNorm
 
+from ..models import _remat
 from ..ops import reduce_ops
 from ..ops.collectives import allreduce_
 from ..process_sets import global_process_set
@@ -41,7 +47,8 @@ class SyncBatchNorm(_BatchNorm):
             return super().forward(input)
         self._check_input_dim(input)
         factor = 0.0 if self.momentum is None else self.momentum
-        if self.track_running_stats and self.num_batches_tracked is not None:
+        if self.track_running_stats and self.num_batches_tracked is not None \
+                and not _remat.recomputing():
             self.num_batches_tracked.add_(1)
             if self.momentum is None:
                 # A cumulative average reads the counter on the host, as
@@ -64,16 +71,22 @@ class _SyncBatchNormFn(torch.autograd.Function):
         dims = [0] + list(range(2, input.dim()))
         shape = [1, c] + [1] * (input.dim() - 2)
         x = input.float()
-        count = torch.full((1,), float(input.numel() // c),
-                           dtype=torch.float32, device=input.device)
-        packed = allreduce_(torch.cat([x.sum(dims), (x * x).sum(dims),
-                                       count]),
-                            op=reduce_ops.Sum, process_set=process_set)
+        queue, recompute = _remat.stash(), _remat.recomputing()
+        if recompute:
+            packed = queue.popleft()
+        else:
+            count = torch.full((1,), float(input.numel() // c),
+                               dtype=torch.float32, device=input.device)
+            packed = allreduce_(torch.cat([x.sum(dims), (x * x).sum(dims),
+                                           count]),
+                                op=reduce_ops.Sum, process_set=process_set)
+            if queue is not None:
+                queue.append(packed)
         total = packed[-1:]
         mean = packed[:c] / total
         var = (packed[c:2 * c] / total - mean * mean).clamp_min(0)
         invstd = torch.rsqrt(var + eps)
-        if running_mean is not None:
+        if running_mean is not None and not recompute:
             with torch.no_grad():
                 running_mean.mul_(1 - momentum).add_(momentum * mean)
                 if unbiased:

@@ -148,6 +148,34 @@ METRICS = register(
     "METRICS", "0",
     "Collect the coordinator's and the backends' metrics (HOROVOD_TPU_"
     "METRICS); off, every metric is a shared no-op")
+METRICS_PUSH_INTERVAL = register(
+    "METRICS_PUSH_INTERVAL", "5",
+    "Seconds between per-rank snapshot pushes to the launcher's KV store")
+METRICS_SNAPSHOT = register(
+    "METRICS_SNAPSHOT", "BENCH_metrics.json",
+    "Path where a benchmark run archives its telemetry snapshot "
+    "(telemetry.archive_snapshot)")
+METRICS_DUMP = register(
+    "METRICS_DUMP", "", "Final JSON snapshot path written at shutdown")
+
+# -- cross-rank tracing (tracing/) --------------------------------------------
+TRACE = register(
+    "TRACE", "0",
+    "Cross-rank trace plane: write a per-rank JSONL trace shard with "
+    "correlated collective spans (name x occurrence x elastic version) "
+    "and push it to the launcher's KV store for the tracing CLI's "
+    "merge/report")
+TRACE_DIR = register(
+    "TRACE_DIR", "hvd_traces",
+    "Directory for trace shards and flight-recorder postmortem dumps")
+FLIGHT_RECORDER = register(
+    "FLIGHT_RECORDER", "1",
+    "Always-on bounded ring of recent collective and negotiation events; "
+    "dumped to a postmortem shard on a collective abort or mismatch "
+    "(0 disables)")
+FLIGHT_RECORDER_EVENTS = register(
+    "FLIGHT_RECORDER_EVENTS", "4096",
+    "Flight-recorder ring capacity, events per rank")
 LEGACY_AUTO_NAMES = register(
     "LEGACY_AUTO_NAMES", "0",
     "Name unnamed collectives by a process-global counter instead of by "

@@ -199,35 +199,47 @@ def test_padding_mask_takes_the_einsum_lowering_with_a_warning(port,
 
 
 def test_cuda_attention_runs_on_the_kernels_or_raises(monkeypatch):
-    # On CUDA tensors the bridge has no einsum lowering: a call the kernels
-    # cannot take raises, whatever HVDTPU_BRIDGE_FLASH says, and never
-    # warns its way past.
+    # On CUDA tensors the bridge runs attention on the kernels, except a
+    # call with a mask: that takes the einsum lowering whatever the mask
+    # holds (a CUDA mask is never read on the host), as the JAX bridge does
+    # with a mask that is not a compile-time constant, with a one-time
+    # warning. q/k/v the kernels cannot take raise, whatever
+    # HVDTPU_BRIDGE_FLASH says, and never warn their way past.
     from torch._subclasses.fake_tensor import FakeTensorMode
     calls = []
     monkeypatch.setattr(tfa, "flash_attention",
                         lambda q, *a, **k: calls.append(k) or q)
     monkeypatch.setattr(tfa, "_bridge_fallback_noted", set())
-    with FakeTensorMode(), warnings.catch_warnings():
-        warnings.simplefilter("error")
+    with FakeTensorMode():
         q = torch.empty(2, 4, 64, 64, device="cuda")
         wide = torch.empty(2, 4, 64, 256, device="cuda")
         flat = torch.empty(4, 64, 64, device="cuda")
         keep_all = torch.ones(64, 64, dtype=torch.bool, device="cuda")
-        cases = [((q, q, q), {"attn_mask": keep_all},
-                  r"torch.bool attn_mask of shape \(64, 64\)"),
-                 ((q, q, q), {"attn_mask": torch.zeros(64, 64,
-                                                       device="cuda")},
-                  "attn_mask of shape"),
-                 ((wide, wide, wide), {}, r"\(2, 4, 64, 256\)"),
-                 ((flat, flat, flat), {}, r"\(4, 64, 64\)")]
-        for route in ("auto", "always"):
+        additive = torch.zeros(64, 64, device="cuda")
+        raising = [((wide, wide, wide), r"\(2, 4, 64, 256\)"),
+                   ((flat, flat, flat), r"\(4, 64, 64\)")]
+        for route in ("auto", "always", "never"):
             monkeypatch.setenv("HVDTPU_BRIDGE_FLASH", route)
-            for args, kwargs, match in cases:
-                with pytest.raises(NotImplementedError, match=match):
-                    tcompile._sdpa(None, *args, **kwargs)
-            tcompile._sdpa(None, q, q, q, attn_mask=None)
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                for args, match in raising:
+                    with pytest.raises(NotImplementedError, match=match):
+                        tcompile._sdpa(None, *args)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                for mask in (keep_all, additive):
+                    out = tcompile._sdpa(None, q, q, q, attn_mask=mask)
+                    assert out.shape == q.shape and out.device == q.device
+            # One warning per reason per process: the bool and the float
+            # mask are two reasons, and only the first route warns.
+            assert len(caught) == (2 if route == "auto" else 0)
+            assert all("mask is not statically all-keep" in str(w.message)
+                       for w in caught)
+            if route != "never":
+                with warnings.catch_warnings():
+                    warnings.simplefilter("error")
+                    tcompile._sdpa(None, q, q, q, attn_mask=None)
         assert len(calls) == 2
-        monkeypatch.setenv("HVDTPU_BRIDGE_FLASH", "never")
         with pytest.raises(ValueError, match="never"):
             tcompile._sdpa(None, q, q, q)
     assert len(calls) == 2
@@ -337,6 +349,30 @@ def test_chip_smoke_standin_is_hf_bert(port):
     l_hf, _ = _loss_and_grads(tcompile.tpu_compile(hf), batch, 3)
     l_si, _ = _loss_and_grads(tcompile.tpu_compile(standin), batch, 3)
     np.testing.assert_allclose(float(l_si), float(l_hf), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_chip_smoke_standin_takes_hf_s_padding_mask(port):
+    # [bertmodel]'s padded bridge call on the card: the stand-in given a
+    # right-padded attention_mask is HF's model given it, eagerly and
+    # through the bridge (the einsum lowering, the mask's route).
+    smoke = _chip_smoke()
+    hf, cfg = _hf_bert()
+    standin = smoke.BertForMaskedLM(smoke.BertConfig(**TINY))
+    standin.load_state_dict(hf.state_dict(), strict=True)
+    ids = _ids(cfg)
+    attn = torch.ones_like(ids)
+    attn[1, 9:] = 0
+    with torch.no_grad():
+        want = hf.eval()(input_ids=ids, attention_mask=attn, labels=ids)
+        got = standin.eval()(input_ids=ids, attention_mask=attn, labels=ids)
+    torch.testing.assert_close(got["logits"], want.logits, atol=1e-5,
+                               rtol=1e-5)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        out = tcompile.tpu_compile(standin)(input_ids=ids,
+                                            attention_mask=attn, labels=ids)
+    torch.testing.assert_close(out["logits"], want.logits, atol=1e-5,
                                rtol=1e-5)
 
 

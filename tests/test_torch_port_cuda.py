@@ -355,3 +355,37 @@ def test_torch_state_commit_restore_sync_on_cuda(hvd_cuda):
     state.sync()
     synced = snapshot()
     assert all(torch.equal(synced[k], committed[k]) for k in committed)
+
+
+def test_a_padded_bridge_call_on_the_card_equals_its_cpu_lowering(hvd_cuda):
+    # The bridge's padded call: a right-padded BERT-style call (chip_smoke's
+    # HF stand-in at full width, 2 layers, 2 x 128, HF's additive mask)
+    # through tpu_compile in bf16 takes the einsum lowering on the card
+    # instead of raising, and equals the same call's CPU lowering within
+    # bf16: max |diff| <= 5e-2 of the largest logit, rel_fro <= 2e-2.
+    import os
+    import sys
+    import torch.nn.functional as F
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    calls = []
+    kernels = tfa.flash_attention
+    tfa.flash_attention = lambda *a, **k: calls.append(1) or kernels(*a,
+                                                                     **k)
+    try:
+        err, limit, fro = chip_smoke.bridge_padded_check(hvd_cuda)
+    finally:
+        tfa.flash_attention = kernels
+    assert not calls
+    assert err <= limit and fro <= 2e-2, (err, limit, fro)
+    # Without the mask the same call is the kernels' again.
+    q = torch.randn(2, 4, 128, 64, device="cuda", dtype=torch.bfloat16)
+    tfa.reset_launches()
+    from horovod_tpu_torch.torch import compile as tcompile
+    with tcompile._BridgeMode(None):
+        F.scaled_dot_product_attention(q, q, q)
+    assert tfa.LAUNCHES["fwd"] == 1

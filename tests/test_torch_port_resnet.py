@@ -228,6 +228,65 @@ def test_three_sgd_steps_match_jax_make_train_step_with_aux(hvd, port):
                if k.endswith("num_batches_tracked"))
 
 
+def _unremat(sd):
+    """flax's nn.remat names a block ``Checkpoint<Block>_<i>``; the port's
+    block keeps its name."""
+    return {k.replace("CheckpointBasicBlock_", "BasicBlock_"): v
+            for k, v in sd.items()}
+
+
+@pytest.mark.parametrize("sync", [False, True], ids=["local", "process_set"])
+@pytest.mark.parametrize("remat", [True, "dots"])
+def test_remat_train_steps_match_flax_and_move_statistics_once(
+        hvd, port, remat, sync):
+    # flax nn.remat keeps the forward's batch_stats and drops the
+    # recompute's; the port's remat blocks must move the running
+    # statistics once per step too, with a process set as without (there
+    # the recompute reuses the forward's sums). 3 SGD steps against JAX
+    # make_train_step with the same remat; then the train-mode logits and
+    # the statistics, within TOL of their largest magnitude.
+    import horovod_tpu.jax as hvd_jax
+    x = _images(n=8)
+    y = np.random.RandomState(1).randint(0, 10, size=8)
+    jm = jmodels.ResNet18(num_classes=10, dtype=jnp.float32, num_filters=8,
+                          axis_name=hvd_jax.HVD_AXIS, remat=remat)
+    variables = jax.device_get(jmodels.ResNet18(
+        num_classes=10, dtype=jnp.float32, num_filters=8,
+        remat=remat).init(jax.random.PRNGKey(0), jnp.asarray(x)))
+    model = tresnet.ResNet18(
+        num_classes=10, dtype=torch.float32, num_filters=8, remat=remat,
+        process_set=port.global_process_set if sync else None)
+    model.load_state_dict(_unremat(tresnet.params_from_flax(variables)))
+    jopt = hvd_jax.DistributedOptimizer(optax.sgd(0.1))
+    jstep = hvd_jax.make_train_step(_flax_loss(jm), jopt, has_aux=True)
+    params = variables["params"]
+    aux = {"batch_stats": variables["batch_stats"]}
+    state = jopt.init(params)
+    step = port.make_train_step(_port_loss, port.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1)), has_aux=True)
+    batch = (_nchw(x), torch.as_tensor(y))
+    for _ in range(3):
+        params, aux, state, jl = jstep(params, aux, state,
+                                       (jnp.asarray(x), jnp.asarray(y)))
+        loss = step(model, batch)
+        np.testing.assert_allclose(loss.item(), float(jl), atol=1e-5,
+                                   rtol=1e-5)
+    want = _unremat(tresnet.params_from_flax(jax.device_get(
+        {"params": params, **aux})))
+    sd = model.state_dict()
+    for k, v in want.items():
+        if not k.endswith("num_batches_tracked"):
+            _assert_close(sd[k].numpy(), v.numpy(), TOL, k)
+    assert all(int(v) == 3 for k, v in sd.items()
+               if k.endswith("num_batches_tracked"))
+    jlogits, _ = jmodels.ResNet18(
+        num_classes=10, dtype=jnp.float32, num_filters=8,
+        remat=remat).apply({"params": params, **aux}, jnp.asarray(x),
+                           train=True, mutable=["batch_stats"])
+    with torch.no_grad():
+        _assert_close(model(_nchw(x)).numpy(), jlogits, TOL, "logits")
+
+
 def test_mnist_cnn_forward_matches_flax():
     x = _images(n=4, hw=28, c=1)
     jm = jmodels.MnistCNN()

@@ -32,11 +32,22 @@ def test_import_pulls_in_no_jax_and_no_horovod_tpu():
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'horovod_tpu' or "
             "m.startswith('horovod_tpu.')]\n"
-            "print(bad)\n")
+            "print(bad)\n"
+            "print(sorted(m for m in sys.modules "
+            "if m.startswith('horovod_tpu_torch.')))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]"
+    bad, imported = out.stdout.strip().splitlines()
+    assert bad == "[]"
+    # The walk reached every module of the telemetry and tracing planes,
+    # the models' remat and the BERT model.
+    for mod in ("telemetry.core", "telemetry.exposition",
+                "telemetry.aggregate", "telemetry.cli", "telemetry.spans",
+                "tracing", "tracing.recorder", "tracing.clock",
+                "tracing.merge", "tracing.analyze", "tracing.cli",
+                "models._remat", "models.transformer", "models.resnet"):
+        assert f"'horovod_tpu_torch.{mod}'" in imported, mod
 
 
 def test_init_without_cuda_raises_unless_cpu_is_asked(monkeypatch):
@@ -179,7 +190,9 @@ def test_knobs_and_reduce_ops_match_the_jax_package():
         "COMPRESSION_THRESHOLD", "COMPRESSION_BLOCK",
         "COMPRESSION_ERROR_FEEDBACK", "SPARSE", "SPARSE_THRESHOLD",
         "SPARSE_EMA", "CONSISTENCY_CHECK", "CONSISTENCY_TIMEOUT",
-        "COLLECTIVE_TIMEOUT", "CHECKPOINT_KEEP", "RESHARD_BUCKET_BYTES"}
+        "COLLECTIVE_TIMEOUT", "CHECKPOINT_KEEP", "RESHARD_BUCKET_BYTES",
+        "METRICS_PUSH_INTERVAL", "METRICS_SNAPSHOT", "METRICS_DUMP",
+        "TRACE", "TRACE_DIR", "FLIGHT_RECORDER", "FLIGHT_RECORDER_EVENTS"}
     for name, knob in tenv.KNOBS.items():
         assert getattr(tenv, name) == name
         assert knob["default"] == jenv.KNOBS[name]["default"]

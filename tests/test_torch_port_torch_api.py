@@ -189,11 +189,27 @@ def test_every_public_name_of_the_jax_package_binding():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda m: m.metrics_snapshot(), 13),
+    (lambda m: m.tpu_compile(torch.nn.Linear(2, 2), verify=True), 15),
 ])
 def test_modes_not_ported_raise_with_their_roadmap_item(port, call, item):
+    # metrics_snapshot raised here (item 13) until the telemetry plane was
+    # ported; the bridge's verifier is item 15's.
     with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
         call(port)
+
+
+def test_metrics_snapshot_is_the_jax_package_s(port, hvd, monkeypatch):
+    import horovod_tpu.torch as ref
+    from horovod_tpu.telemetry import core as jcore
+    from horovod_tpu_torch.telemetry import core as tcore
+    for core in (jcore, tcore):
+        monkeypatch.setattr(core, "_ENABLED", None)
+    monkeypatch.setenv("HOROVOD_TPU_METRICS", "0")
+    snaps = [ref.metrics_snapshot(), port.metrics_snapshot()]
+    assert [s["families"] for s in snaps] == [{}, {}]
+    assert snaps[1]["rank"] == 0 and snaps[1]["size"] == 1 and \
+        snaps[1]["mode"] == "single"
+    assert set(snaps[0]) == set(snaps[1])
 
 
 def _sgd():
