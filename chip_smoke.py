@@ -4211,6 +4211,598 @@ def trace_phase():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# [autotune], [chaos], [ha]: the autotuner, fault injection and control-plane
+# HA on the flagship's path. Each is a launcher job of the port
+# (``python -m horovod_tpu_torch.runner.launch``) whose worker is this
+# script; the TransformerLM at full width runs through the native plane and
+# NCCL in each, so the no-dropout kernels run on every step.
+# ---------------------------------------------------------------------------
+AUTOTUNE_GRID = dict(
+    HVDTPU_AUTOTUNE_FUSION_CANDIDATES_MIB="0,32,128",
+    HVDTPU_AUTOTUNE_CYCLE_CANDIDATES_MS="0.5,5",
+    HVDTPU_AUTOTUNE_WARMUP_CYCLES="3",
+    HVDTPU_AUTOTUNE_CYCLES_PER_CANDIDATE="4")
+AUTOTUNE_MAX_STEPS = 60     # the sweep must converge within these
+AUTOTUNE_AB_ROUNDS = 3      # winner / untuned turns, 3 steps each
+CHAOS_STEPS = 8             # each run; the control, the injected, the HA
+CHAOS_FAIL_STEP = 4         # the grad submission that fails (elastic run)
+CHAOS_CKPT_STEPS = (2, 3)   # checkpoints; the newest is corrupted
+CHAOS_RTOL = 1e-6
+HA_KILL_AFTER = 3           # the primary dies after this step's commit
+CARD_BACKEND = "nccl-global"   # the plane of a launcher job on the card
+HA_LEASE = dict(HVDTPU_DRIVER_LEASE_INTERVAL="0.3",
+                HVDTPU_DRIVER_LEASE_TIMEOUT="2",
+                HVDTPU_HEARTBEAT_INTERVAL="0.25")
+
+
+def _launcher_env(**extra):
+    """This process's environment without any knob of the port, the
+    checkout on PYTHONPATH, and ``extra``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HVDTPU_", "HOROVOD_", "MASTER_"))}
+    env.update(PYTHONPATH=here, **extra)
+    return env
+
+
+def _launcher(args, child, out):
+    """``python -m horovod_tpu_torch.runner.launch ARGS python
+    chip_smoke.py CHILD OUT``."""
+    return [sys.executable, "-m", "horovod_tpu_torch.runner.launch", *args,
+            sys.executable, os.path.abspath(__file__), child, out]
+
+
+def _discovery(tmp):
+    script = os.path.join(tmp, "discover.sh")
+    with open(script, "w") as f:
+        f.write("#!/bin/sh\necho localhost:1\n")
+    os.chmod(script, 0o755)
+    return script
+
+
+def _check_launches(tag, per_step):
+    """24 launches of each no-dropout kernel in every step."""
+    want = dict.fromkeys(("fwd", "bwd_dkv", "bwd_dq"), 24)
+    bad = [i + 1 for i, d in enumerate(per_step) if d != want]
+    if bad or not per_step:
+        fail(f"[{tag}] expected 24 launches of each no-dropout kernel per "
+             f"step; steps {bad} differ")
+    return {n: sum(d[n] for d in per_step) for n in want}
+
+
+def _timed_steps(step, model, x, y, n, fa, coord=None):
+    """``n`` steps: losses, host ms, launches and (with ``coord``) the
+    knobs each ran under."""
+    r = {"losses": [], "ms": [], "launches": [], "knobs": []}
+    for _ in range(n):
+        prev = dict(fa.LAUNCHES)
+        if coord is not None:
+            r["knobs"].append([coord.fusion_threshold,
+                               coord.cycle_time_s * 1e3])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r["losses"].append(step(model, (x, y)).item())
+        r["ms"].append((time.perf_counter() - t0) * 1e3)
+        r["launches"].append({k: fa.LAUNCHES[k] - prev[k]
+                              for k in ("fwd", "bwd_dkv", "bwd_dq")})
+    return r
+
+
+def autotune_phase(native_res):
+    """``--autotune`` on the flagship: a one-rank launcher job sweeps
+    fusion threshold x cycle time (the grid of ``AUTOTUNE_GRID``) until
+    the tuner converges and writes its store; a second job against the
+    same store warm-starts. Losses are held to [native]'s (the knobs do not
+    change the arithmetic of a one-rank average)."""
+    import tempfile
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="hvd-autotune-") as tmp:
+        cache = os.path.join(tmp, "autotune.json")
+        for tag in ("sweep", "warm"):
+            out = os.path.join(tmp, f"{tag}.json")
+            csv = os.path.join(tmp, f"{tag}.csv")
+            # The store's key names the model explicitly: the derived key
+            # hashes the names the flight ring holds when the warm-up
+            # ends, which depends on how far step 1 got by then.
+            env = _launcher_env(HVDTPU_AUTOTUNE_CACHE=cache,
+                                HVDTPU_AUTOTUNE_SIGNATURE="transformerlm",
+                                HVDTPU_LOG_LEVEL="info", **AUTOTUNE_GRID)
+            t0 = time.perf_counter()
+            rc, text = run_launcher(
+                _launcher(["-np", "1", "--autotune", "--autotune-log-file",
+                           csv], "--autotune-child", out),
+                os.path.dirname(os.path.abspath(__file__)), env, 600)
+            wall = time.perf_counter() - t0
+            for line in text.splitlines():
+                if "autotune" in line:
+                    log("  | " + line[-300:])
+            if rc != 0:
+                log(text[-6000:])
+                fail(f"[autotune] the {tag} launcher job exited {rc}")
+            with open(out) as f:
+                runs[tag] = json.load(f)
+            runs[tag]["wall_s"] = wall
+            runs[tag]["csv"] = (open(csv).read().splitlines()
+                                if os.path.exists(csv) else [])
+        with open(cache) as f:
+            store = json.load(f)
+    sweep, warm = runs["sweep"], runs["warm"]
+    ref = native_res["transformer_losses"]
+    bad = []
+    for tag, r in runs.items():
+        got = r["losses"][:len(ref)]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+        log(f"[autotune] {tag}: losses of steps 1..{len(ref)} {got} against "
+            f"[native]'s: max relative difference {rel:.2e} (limit "
+            f"{NATIVE_TRANSFORMER_RTOL:.0e}); launcher job {r['wall_s']:.1f}"
+            " s")
+        if len(got) != len(ref) or rel > NATIVE_TRANSFORMER_RTOL:
+            bad.append(f"{tag} losses differ from [native]'s")
+    for arm, rnd, cand, score in sweep["history"]:
+        log(f"[autotune] window score arm {arm} round {rnd} candidate "
+            f"{cand}: {score:.6g} ({sweep['score_source']})")
+    log(f"[autotune] sweep: converged after {sweep['converge_steps']} steps "
+        f"({sweep['active_cycles']} active cycles); applied "
+        f"{sweep['applied']}; winner {sweep['best']} (fusion threshold "
+        f"bytes, cycle ms, min bucket); log file rows {sweep['csv']}")
+    log(f"[autotune] store {sorted(store['entries'])}: "
+        f"{[e['config'] for e in store['entries'].values()]}")
+    if "winner_ms" not in sweep:
+        fail("[autotune] the sweep did not converge")
+    log(f"[autotune] step ms under the winner {sweep['winner_ms']:.1f} "
+        f"against the untuned (128 MiB, 1 ms) {sweep['untuned_ms']:.1f} "
+        f"({sweep['winner_ms'] - sweep['untuned_ms']:+.1f} ms; median of "
+        f"{AUTOTUNE_AB_ROUNDS} rounds of 3 steps each, in turns)")
+    log(f"[autotune] warm: applied {warm['applied']} after "
+        f"{warm['converge_steps']} steps, windows scored "
+        f"{len(warm['history'])}, winner {warm['best']}")
+    if sweep["enabled"] or not sweep["history"]:
+        bad.append("the sweep did not converge")
+    if not store["entries"]:
+        bad.append("the store holds no entry")
+    if sweep["applied"][-1] != warm["applied"][0] or len(warm["applied"]) \
+            != 1 or warm["history"] or warm["enabled"]:
+        bad.append("the rerun was no warm-start hit of the sweep's winner")
+    if warm["best"] != [max(sweep["best"][0], 1)] + sweep["best"][1:]:
+        bad.append("the warm-started winner differs from the sweep's")
+    if bad:
+        fail("[autotune] " + "; ".join(bad))
+    return {n: sweep["launch_sum"][n] + warm["launch_sum"][n]
+            for n in sweep["launch_sum"]}
+
+
+def autotune_child(out):
+    """The worker of ``autotune_phase`` (``chip_smoke.py --autotune-child
+    OUT``): rank 0 of a one-rank launcher job under ``--autotune``; trains
+    until the tuner converged (at least 5 steps), then times the winner
+    against the untuned knobs in turns."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import basics, models
+    from horovod_tpu_torch import coordinator as coord_mod
+    from horovod_tpu_torch.ops import flash_attention as fa
+    hvd.init()
+    rt = basics.runtime()
+    tuner, coord = rt.autotuner, rt.coordinator
+    if tuner is None or rt.backend.name != CARD_BACKEND:
+        fail(f"[autotune] expected the tuner on the NCCL-delegated plane, "
+             f"got {tuner} on {rt.backend.name}")
+    cfg, model, step, x, y = transformer_setup(hvd, models)
+    fa.reset_launches()
+    r = {"losses": [], "ms": [], "launches": [], "knobs": []}
+    while len(r["losses"]) < AUTOTUNE_MAX_STEPS and (
+            tuner.enabled or len(r["losses"]) < TRAIN_STEPS):
+        for k, v in _timed_steps(step, model, x, y, 1, fa, coord).items():
+            r[k] += v
+    by_arm = {a.name: a for a in tuner._arms}
+    res = {"losses": r["losses"], "converge_steps": len(r["losses"]),
+           "enabled": tuner.enabled, "active_cycles": tuner._cycle,
+           "applied": [list(a) for a in tuner.applied],
+           "best": list(tuner.best) if tuner.best is not None else None,
+           "score_source": tuner._score_label,
+           "history": [[arm, rnd, by_arm[arm].fmt(by_arm[arm].candidates[i]),
+                        m] for arm, rnd, i, m in tuner._history],
+           "launch_sum": _check_launches("autotune", r["launches"])}
+    if not tuner.enabled and tuner._history:
+        # The sweep's run: the winner against the untuned knobs.
+        winner = (coord.fusion_threshold, coord.cycle_time_s)
+        untuned = (coord_mod.DEFAULT_FUSION_THRESHOLD,
+                   coord_mod.DEFAULT_CYCLE_TIME_MS / 1e3)
+
+        def apply(knobs):
+            coord.fusion_threshold, coord.cycle_time_s = knobs
+            rt.backend.core.set_fusion_threshold(knobs[0])
+        times = {"winner": [], "untuned": []}
+        for i in range(AUTOTUNE_AB_ROUNDS):
+            order = (("winner", winner), ("untuned", untuned))
+            for tag, knobs in (order if i % 2 == 0 else order[::-1]):
+                apply(knobs)
+                t = _timed_steps(step, model, x, y, 3, fa)
+                times[tag].append(_median(t["ms"]))
+        apply(winner)
+        res["winner_ms"] = _median(times["winner"])
+        res["untuned_ms"] = _median(times["untuned"])
+    hvd.shutdown()
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def chaos_phase(native_res):
+    """Fault injection on the flagship under ``hvd.elastic.run``: a
+    one-rank elastic launcher job (``--chaos-child``) trains an uninjected
+    control, then the same steps with ``collective:fail`` on the grad
+    submission of step ``CHAOS_FAIL_STEP`` (a HorovodInternalError, an
+    in-process reset) and checkpoints after steps 2 and 3, the newest
+    corrupted by ``checkpoint:corrupt``; it then restores the newest intact
+    step and resumes. Returns the kernels' launches and the control's
+    losses (the [ha] phase's uninterrupted run)."""
+    import shutil
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="hvd-chaos-") as tmp:
+        need = 2 * 3 * 365_000_000 * 4
+        free = shutil.disk_usage(tmp).free
+        if free < 1.5 * need:
+            fail(f"[chaos] {tmp} has {free / 1e9:.1f} GB free; the phase "
+                 f"writes about {need / 1e9:.1f} GB")
+        out = os.path.join(tmp, "chaos.json")
+        chaos_log = os.path.join(tmp, "chaos.log")
+        spec = (f"collective:fail:name=grad:"
+                f"after={CHAOS_STEPS + CHAOS_FAIL_STEP - 1}:once;"
+                f"checkpoint:corrupt:name=step_{CHAOS_CKPT_STEPS[-1]}")
+        env = _launcher_env(HVDTPU_CHAOS=spec, HVDTPU_CHAOS_LOG=chaos_log,
+                            HOROVOD_TPU_METRICS="1",
+                            HVDTPU_LOG_LEVEL="info")
+        t0 = time.perf_counter()
+        rc, text = run_launcher(
+            _launcher(["-np", "1", "--min-np", "1", "--max-np", "1",
+                       "--host-discovery-script", _discovery(tmp)],
+                      "--chaos-child", out),
+            os.path.dirname(os.path.abspath(__file__)), env, 900)
+        wall = time.perf_counter() - t0
+        for line in text.splitlines():
+            if "chaos" in line or "elastic" in line.lower():
+                log("  | " + line[-300:])
+        if rc != 0 or not os.path.exists(out):
+            log(text[-6000:])
+            fail(f"[chaos] the elastic launcher job exited {rc}")
+        with open(out) as f:
+            res = json.load(f)
+        fired = open(chaos_log).read().splitlines() \
+            if os.path.exists(chaos_log) else []
+    ctl = res["control"]
+    bad = []
+    ref = native_res["transformer_losses"]
+    rel_n = max(abs(a - b) / abs(b) for a, b in zip(ctl[:len(ref)], ref))
+    got = [res["losses"][str(s)] for s in range(1, CHAOS_STEPS + 1)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, ctl))
+    res_got = res["resumed"]
+    first = CHAOS_CKPT_STEPS[0] + 1
+    rel_r = max(abs(a - b) / abs(b)
+                for a, b in zip(res_got, ctl[first - 1:]))
+    log(f"[chaos] control (uninjected) losses {ctl}; steps 1..{len(ref)} "
+        f"against [native]'s: max relative difference {rel_n:.2e}")
+    log(f"[chaos] HVDTPU_CHAOS={res['spec']!r}: firings "
+        f"{[ln.split(' ', 1)[1] for ln in fired]}; "
+        f"hvd_chaos_injections_total {res['injections']}")
+    log(f"[chaos] collective fail at step {CHAOS_FAIL_STEP}: "
+        f"{res['caught']}; elastic versions joined {res['versions']}; "
+        f"losses {got} against the control's: max relative difference "
+        f"{rel:.2e} (limit {CHAOS_RTOL:.0e}), bit-equal {got == ctl}")
+    log(f"[chaos] reset s {res['reset_ms'] / 1e3:.3f} (shutdown "
+        f"{res['reset_parts']['shutdown'] / 1e3:.3f}, init "
+        f"{res['reset_parts']['init'] / 1e3:.3f}); restore of the last "
+        f"commit {res['restore_commit_ms']:.1f} ms")
+    log(f"[chaos] checkpoints {res['kept']}: step_{CHAOS_CKPT_STEPS[-1]} "
+        f"verified {res['verified']} ({res['verify_reason']}); "
+        f"restore_latest took step {res['restored_step']} in "
+        f"{res['restore_s']:.2f} s (save {res['save_s']}); resumed steps "
+        f"{first}..{CHAOS_STEPS} {res_got} against the control's: max "
+        f"relative difference {rel_r:.2e} (limit {CHAOS_RTOL:.0e}); "
+        f"launcher job {wall:.1f} s")
+    if rel > CHAOS_RTOL:
+        bad.append("the injected run's losses differ from the control's")
+    if rel_r > CHAOS_RTOL:
+        bad.append("the resumed losses differ from the control's")
+    if rel_n > NATIVE_TRANSFORMER_RTOL:
+        bad.append("the control differs from [native]")
+    if res["versions"] != [0, 1] or res["caught"] != 1:
+        bad.append("expected one HorovodInternalError and one in-process "
+                   "reset (elastic versions 0 then 1)")
+    if res["restored_step"] != CHAOS_CKPT_STEPS[0] or res["verified"]:
+        bad.append("the corrupted checkpoint was not passed over")
+    kinds = sorted(" ".join(ln.split()[1:3]) for ln in fired)
+    if kinds != ["checkpoint corrupt", "collective fail"]:
+        bad.append(f"HVDTPU_CHAOS_LOG names {kinds}")
+    if res["injections"] != {"checkpoint/corrupt": 1, "collective/fail": 1}:
+        bad.append(f"hvd_chaos_injections_total {res['injections']}")
+    if bad:
+        fail("[chaos] " + "; ".join(bad))
+    return res["launch_sum"], ctl
+
+
+def chaos_child(out):
+    """The worker of ``chaos_phase`` (``chip_smoke.py --chaos-child OUT``):
+    an elastic worker of a one-rank launcher job on the card."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch import basics, checkpoint, models, telemetry
+    from horovod_tpu_torch.ops import flash_attention as fa
+    hvd.init()
+    rt = basics.runtime()
+    if rt.backend.name != CARD_BACKEND:
+        fail(f"[chaos] expected the NCCL-delegated plane, got "
+             f"{rt.backend.name}")
+    tmp = os.path.dirname(out)
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    fa.reset_launches()
+    launches = []
+    cfg, model, step, x, y = transformer_setup(hvd, models)
+    c = _timed_steps(step, model, x, y, CHAOS_STEPS, fa)
+    launches += c["launches"]
+    res = {"control": c["losses"], "spec": os.environ["HVDTPU_CHAOS"],
+           "versions": [int(os.environ["HVDTPU_ELASTIC_VERSION"])],
+           "losses": {}, "caught": 0, "save_s": []}
+    del model, step
+    torch.cuda.empty_cache()
+    cfg, model, step, x, y = transformer_setup(hvd, models)
+    opt = step.optimizer
+
+    class TimedState(hvd_torch.elastic.TorchState):
+        def restore(self):
+            res["caught"] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().restore()
+            torch.cuda.synchronize()
+            res["restore_commit_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def after_reset():
+        res["versions"].append(int(os.environ["HVDTPU_ELASTIC_VERSION"]))
+        down, up = (basics.LAST_TIMES["shutdown"], basics.LAST_TIMES["init"])
+        res["reset_ms"] = down["total"] + up["total"]
+        res["reset_parts"] = {"shutdown": down["total"],
+                              "init": up["total"]}
+
+    state = TimedState(model, opt, step=0)
+    state.register_reset_callbacks([after_reset])
+
+    @hvd_torch.elastic.run
+    def train_loop(state):
+        while state.step < CHAOS_STEPS:
+            s = state.step + 1
+            r = _timed_steps(step, model, x, y, 1, fa)
+            launches.extend(r["launches"])
+            res["losses"][str(s)] = r["losses"][0]
+            state.step = s
+            state.commit()
+            if s in CHAOS_CKPT_STEPS:
+                t0 = time.perf_counter()
+                checkpoint.save_step(ckpt_dir, s, {
+                    "model": model.state_dict(), "opt": opt.state_dict()})
+                res["save_s"].append(round(time.perf_counter() - t0, 2))
+        return state.step
+
+    train_loop(state)
+    newest = os.path.join(ckpt_dir, f"step_{CHAOS_CKPT_STEPS[-1]}")
+    res["verified"], res["verify_reason"] = \
+        checkpoint.verify_checkpoint(newest)
+    res["kept"] = sorted(checkpoint._list_steps(ckpt_dir))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got_step, saved = checkpoint.restore_latest(ckpt_dir)
+    model.load_state_dict(checkpoint.to_tensors(saved["model"]))
+    opt.load_state_dict(checkpoint.to_tensors(saved["opt"]))
+    torch.cuda.synchronize()
+    res["restore_s"] = time.perf_counter() - t0
+    res["restored_step"] = got_step
+    del saved
+    r = _timed_steps(step, model, x, y, CHAOS_STEPS - got_step, fa)
+    launches += r["launches"]
+    res["resumed"] = r["losses"]
+    fam = telemetry.snapshot()["families"].get(
+        "hvd_chaos_injections_total", {})
+    res["injections"] = {
+        f"{s['labels']['point']}/{s['labels']['action']}": s["value"]
+        for s in fam.get("samples", ())}
+    res["launch_sum"] = _check_launches("chaos", launches)
+    with open(out, "w") as f:
+        json.dump(res, f)
+    hvd.shutdown()
+
+
+def ha_phase(control_losses):
+    """Control-plane HA on the flagship: a primary launcher with
+    ``--journal-dir`` and ``--standby-endpoints``, a warm standby launcher
+    (``--standby``), one elastic worker (``--ha-child``). The worker
+    removes the marker of the primary's ``driver:kill`` rule after step
+    ``HA_KILL_AFTER``, so that the kill lands mid-job; the standby promotes
+    at term 2 and adopts the worker, whose KV client fails over. Losses are
+    held to [chaos]'s uninterrupted control."""
+    import socket
+    import tempfile
+    from horovod_tpu_torch.runner import http_client, http_server
+    with tempfile.TemporaryDirectory(prefix="hvd-ha-") as tmp:
+        ports = []
+        for _ in range(2):
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                ports.append(sock.getsockname()[1])
+        p_port, s_port = ports
+        token = http_server.new_job_token()
+        marker = os.path.join(tmp, "kill.marker")
+        open(marker, "w").close()
+        chaos_log = os.path.join(tmp, "chaos.log")
+        out = os.path.join(tmp, "ha")
+        here = os.path.dirname(os.path.abspath(__file__))
+        base = ["-np", "1", "--min-np", "1", "--max-np", "1",
+                "--host-discovery-script", _discovery(tmp)]
+        env = _launcher_env(HVDTPU_JOB_TOKEN=token, HOROVOD_TPU_METRICS="1",
+                            HVDTPU_LOG_LEVEL="info", **HA_LEASE)
+        s_out = open(os.path.join(tmp, "standby.txt"), "w")
+        standby = subprocess.Popen(
+            _launcher(base + ["--standby", f"127.0.0.1:{p_port}"],
+                      "--ha-child", out), cwd=here,
+            env=dict(env, HVDTPU_DRIVER_PORT=str(s_port)), stdout=s_out,
+            stderr=subprocess.STDOUT)
+        p_out = open(os.path.join(tmp, "primary.txt"), "w")
+        primary = subprocess.Popen(
+            _launcher(base + ["--journal-dir", os.path.join(tmp, "journal"),
+                              "--standby-endpoints", f"127.0.0.1:{s_port}",
+                              "--driver-port", str(p_port)],
+                      "--ha-child", out), cwd=here,
+            env=dict(env, HVDTPU_CHAOS=f"driver:kill:wid=primary:after=20:"
+                                       f"marker={marker}",
+                     HVDTPU_CHAOS_LOG=chaos_log, HA_KILL_MARKER=marker),
+            stdout=p_out, stderr=subprocess.STDOUT)
+        promoted_at = None
+        try:
+            p_rc = primary.wait(timeout=600)
+            t_exit = time.time()
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline:
+                term = http_client.probe_term("127.0.0.1", s_port,
+                                              token=token, timeout=1)
+                if term is not None and term >= 2:
+                    promoted_at = time.time()
+                    break
+                time.sleep(0.02)
+            s_rc = standby.wait(timeout=600)
+        finally:
+            for proc in (primary, standby):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            p_out.close()
+            s_out.close()
+        texts = {n: open(os.path.join(tmp, f"{n}.txt")).read()
+                 for n in ("primary", "standby")}
+        kill_t = (os.path.getmtime(chaos_log) if os.path.exists(chaos_log)
+                  else None)
+        fired = open(chaos_log).read().splitlines() \
+            if os.path.exists(chaos_log) else []
+        worker_log = (open(out + ".log").read()
+                      if os.path.exists(out + ".log") else "")
+        if not os.path.exists(out + ".json"):
+            log(texts["primary"][-4000:] + texts["standby"][-4000:]
+                + worker_log[-4000:])
+            fail("[ha] the worker reported nothing")
+        with open(out + ".json") as f:
+            res = json.load(f)
+    for line in texts["standby"].splitlines():
+        if "standby" in line or "PRIMARY" in line:
+            log("  | " + line[-300:])
+    got = res["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, control_losses))
+    gaps = [b - a for a, b in zip(res["step_t"], res["step_t"][1:])]
+    worst = max(range(len(gaps)), key=gaps.__getitem__)
+    bad = []
+    log(f"[ha] primary exit {p_rc} (SIGKILL by driver:kill, firings "
+        f"{fired}), standby exit {s_rc}; kill to promotion "
+        f"{promoted_at - kill_t:.2f} s (lease timeout "
+        f"{HA_LEASE['HVDTPU_DRIVER_LEASE_TIMEOUT']} s, interval "
+        f"{HA_LEASE['HVDTPU_DRIVER_LEASE_INTERVAL']} s; primary exit "
+        f"observed {t_exit - kill_t:.2f} s after the kill)"
+        if promoted_at and kill_t else
+        f"[ha] primary exit {p_rc}, standby exit {s_rc}, no promotion seen")
+    log(f"[ha] worker pid {res['pids']}, elastic versions {res['versions']},"
+        f" resets {res['resets']}, KV term {res['term']}; "
+        f"hvd_kv_endpoint_failover_total {res['kv_failovers']}, the "
+        f"promoted standby's hvd_driver_failover_total "
+        f"{res['driver_failovers']}; longest step gap {gaps[worst]:.2f} s "
+        f"(after step {worst + 1}; the median gap "
+        f"{_median(gaps):.3f} s)")
+    log(f"[ha] losses {got} against the uninterrupted control's: max "
+        f"relative difference {rel:.2e} (limit {CHAOS_RTOL:.0e}), bit-equal "
+        f"{got == control_losses}")
+    if p_rc != -9 or not fired:
+        bad.append(f"the primary was not killed by driver:kill (exit {p_rc})")
+    if s_rc != 0:
+        bad.append(f"the standby launcher exited {s_rc}")
+    if promoted_at is None or res["term"] < 2:
+        bad.append("the standby never promoted at term 2")
+    if "1 workers adopted" not in texts["standby"]:
+        bad.append("the standby adopted no worker")
+    if len(set(res["pids"])) != 1 or res["versions"] != [0, 0] \
+            or res["resets"]:
+        bad.append("the worker was respawned or reset")
+    if res["kv_failovers"] < 1 or res["driver_failovers"] != 1:
+        bad.append("the failover counters are wrong")
+    if len(got) != CHAOS_STEPS or rel > CHAOS_RTOL:
+        bad.append("losses differ from the uninterrupted run's")
+    if bad:
+        log(worker_log[-3000:])
+        fail("[ha] " + "; ".join(bad))
+    return res["launch_sum"]
+
+
+def ha_child(out):
+    """The worker of ``ha_phase`` (``chip_smoke.py --ha-child OUT``): an
+    elastic worker whose launcher dies mid-job. Its output goes to
+    ``OUT.log`` (the dead primary's pipe would fail every write)."""
+    fd = os.open(out + ".log", os.O_WRONLY | os.O_CREAT | os.O_APPEND,
+                 0o644)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import urllib.request
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch import basics, models, telemetry
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.runner import http_client, http_server
+    from horovod_tpu_torch.runner import rendezvous as rdv
+    marker = os.environ["HA_KILL_MARKER"]
+    hvd.init()
+    rt = basics.runtime()
+    backend = rt.backend
+    res = {"pids": [os.getpid()], "losses": [], "step_t": [], "resets": 0,
+           "versions": [int(os.environ["HVDTPU_ELASTIC_VERSION"])]}
+    launches = []
+    cfg, model, step, x, y = transformer_setup(hvd, models)
+    state = hvd_torch.elastic.TorchState(model, step.optimizer, step=0)
+    state.register_reset_callbacks(
+        [lambda: res.__setitem__("resets", res["resets"] + 1)])
+
+    @hvd_torch.elastic.run
+    def train_loop(state):
+        while state.step < CHAOS_STEPS:
+            s = state.step + 1
+            r = _timed_steps(step, model, x, y, 1, fa)
+            launches.extend(r["launches"])
+            res["losses"].append(r["losses"][0])
+            state.step = s
+            state.commit()
+            res["step_t"].append(time.time())
+            if s == HA_KILL_AFTER:
+                os.remove(marker)   # the primary's driver:kill fires now
+        # Before returning: elastic.run then leaves the exit marker the
+        # promoted standby reaps.
+        addr, port, token = rdv.rendezvous_config()
+        req = urllib.request.Request(f"http://{addr}:{port}/metrics")
+        req.add_header(http_server.AUTH_HEADER, token)
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            text = resp.read().decode()
+        found = re.findall(r"^hvd_driver_failover_total(?:\{[^}]*\})? "
+                           r"(\S+)$", text, re.M)
+        res["driver_failovers"] = float(found[0]) if found else 0
+        fam = telemetry.snapshot()["families"].get(
+            "hvd_kv_endpoint_failover_total", {})
+        res["kv_failovers"] = sum(s["value"] for s in fam.get("samples", ()))
+        res["term"] = http_client.known_term()
+        res["pids"].append(os.getpid())
+        res["versions"].append(int(os.environ["HVDTPU_ELASTIC_VERSION"]))
+        res["same_backend"] = basics.runtime().backend is backend
+        res["launch_sum"] = _check_launches("ha", launches)
+        with open(out + ".json", "w") as f:
+            json.dump(res, f)
+        return state.step
+
+    train_loop(state)
+    hvd.shutdown()
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -4305,6 +4897,15 @@ def main():
     trace_launches = trace_phase()
     log("[launches] [trace] " + ", ".join(
         f"{n}={c}" for n, c in trace_launches.items()))
+    at_launches = autotune_phase(native_res)
+    log("[launches] [autotune] " + ", ".join(
+        f"{n}={c}" for n, c in at_launches.items()))
+    chaos_launches, control_losses = chaos_phase(native_res)
+    log("[launches] [chaos] " + ", ".join(
+        f"{n}={c}" for n, c in chaos_launches.items()))
+    ha_launches = ha_phase(control_losses)
+    log("[launches] [ha] " + ", ".join(
+        f"{n}={c}" for n, c in ha_launches.items()))
     log("[launches] " + ", ".join(f"{n}={c}" for n, c in launches.items()))
     if set(launches) != set(KERNELS) or not all(launches.values()):
         fail(f"a kernel was not launched on its path: {launches}")
@@ -4346,5 +4947,11 @@ if __name__ == "__main__":
         sharded_child(sys.argv[2])
     elif sys.argv[1:2] == ["--trace-child"]:
         trace_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--autotune-child"]:
+        autotune_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--chaos-child"]:
+        chaos_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--ha-child"]:
+        ha_child(sys.argv[2])
     else:
         main()

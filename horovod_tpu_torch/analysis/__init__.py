@@ -1,8 +1,9 @@
 """Static analysis (port of ``horovod_tpu/analysis/``), in part.
 
-Only what the redistribution planner prices its programs with is here:
-``costmodel.collective_time`` and the cold-case α–β table. The linters,
-the schedule verifier, the symbolic simulator (``hvd-sim``, which
-``resharding.Program.prove`` needs), calibration and the HVD6xx
-diagnostics come with ROADMAP item 15.
+Here: ``costmodel`` (``collective_time`` and the cold-case α–β table the
+redistribution planner prices with; the autotuner's warm-start prior
+``rank_candidates``) and ``protocol/journal_spec`` (the HA journal's state
+machine). The linters, the schedule verifier, the symbolic simulator
+(``hvd-sim``, which ``resharding.Program.prove`` needs), calibration, the
+HVD6xx diagnostics and the ``hvd-model`` checker come with ROADMAP item 15.
 """

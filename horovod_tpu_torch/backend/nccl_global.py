@@ -458,6 +458,14 @@ class NcclGlobalBackend(TcpBackend):
             work.pop(0)
         return [(nm, now - t) for names, t, _ in work for nm in names]
 
+    def bytes_processed(self):
+        """The core's count plus the bytes of the responses handed to
+        ``torch.distributed``: a delegated response completes in the core
+        without its result (the core counts 0 bytes for it), and the cycle
+        thread adds the response's bytes in the round that negotiated it,
+        so the count moves alike on every rank."""
+        return self.core.bytes_processed() + self.response_bytes
+
     def _sweep_one(self, p):
         if isinstance(p.unpack, _Staged):
             return False

@@ -24,7 +24,7 @@ import time
 
 import torch
 
-from .. import native, tracing
+from .. import chaos, native, tracing
 from ..exceptions import HorovodInternalError, StalledTensorError
 from ..ops import reduce_ops
 from ..telemetry import core as telemetry
@@ -102,6 +102,11 @@ class TcpBackend:
         # Owned by the coordinator's cycle thread once it starts; close()
         # runs after coordinator.stop() joined that thread.
         self._pending = []
+        # Chaos 'backend_submit:stall' victims: never enqueued with the
+        # native core, kept so that an abort, a transport death or close()
+        # still fails their waiters.
+        self._chaos_swallowed = []
+        self._sync_seq = 0
         self._sweep_event = None
         self._transport_dead = False
         # Set by a watchdog abort: a peer that stopped taking part never
@@ -118,6 +123,9 @@ class TcpBackend:
         self.entry_done_cb = None
         self.compression_plane = None
         self._metrics_on = telemetry.enabled()
+        # Chaos 'backend_submit' point (HVDTPU_CHAOS), cached: the disabled
+        # path costs one compare per submission.
+        self._chaos_on = chaos.enabled()
         self._m_time = telemetry.histogram(
             "hvd_backend_collective_seconds",
             "Per-collective backend wall time (negotiation included)",
@@ -151,6 +159,26 @@ class TcpBackend:
         """Translate a TensorEntry into native enqueues; on a synchronous
         failure its handle fails at once."""
         try:
+            if self._chaos_on:
+                # A matching fail rule raises HorovodInternalError here,
+                # which the except below routes to the entry's handle:
+                # the path a native enqueue failure takes.
+                try:
+                    chaos.inject("backend_submit", name=entry.name,
+                                 kind=entry.kind)
+                except chaos.ChaosSignal as sig:
+                    if sig.action == "stall":
+                        # Swallowed below the coordinator: the op stays in
+                        # this rank's in-flight view but never reaches the
+                        # negotiation, a hang for the watchdog to time
+                        # out (its abort reaches the entry through
+                        # _fail_all).
+                        self._log.warning(
+                            "chaos: backend submission %r swallowed "
+                            "(stall injection)", entry.name)
+                        self._chaos_swallowed.append(entry)
+                        return
+                    raise
             pending = self._enqueue_entry(entry)
             if self._metrics_on:
                 pending.t0 = time.perf_counter()
@@ -454,9 +482,38 @@ class TcpBackend:
                 self.entry_done_cb(p.entry, ok=False)
             p.entry.handle._fail(exc)
         self._pending = []
+        for e in self._chaos_swallowed:
+            if self.entry_done_cb:
+                self.entry_done_cb(e, ok=False)
+            e.handle._fail(exc)
+        self._chaos_swallowed = []
 
     def pending_count(self):
         return len(self._pending)
+
+    def bytes_processed(self):
+        """Payload bytes this rank's collectives moved: the native core's
+        count, updated on the cycle thread in the negotiation round that
+        ran them (the autotuner's active-cycle clock)."""
+        return self.core.bytes_processed()
+
+    def broadcast(self, tensors, root_rank, ps):
+        """Broadcast driven to completion on the calling thread: the
+        autotuner's rank-0 decisions go out this way from the cycle thread,
+        which cannot wait for a cycle it runs itself (the JAX package's
+        synchronous backend verbs, backend/tcp_backend.py). Every rank
+        calls it at the same negotiation round, so the generated names
+        agree; the rounds it runs are negotiation rounds like any other."""
+        from ..coordinator import TensorEntry
+        self._sync_seq += 1
+        entry = TensorEntry(f"hvd.sync.broadcast.{self._sync_seq}",
+                            "broadcast", list(tensors), ps,
+                            root_rank=root_rank)
+        self.submit_entry(entry)
+        while not entry.handle.poll():
+            self.run_cycle()
+        out = entry.handle.wait()
+        return list(out) if isinstance(out, (list, tuple)) else [out]
 
     def abort_inflight(self, exc):
         """Fail every pending negotiation with ``exc``, releasing the

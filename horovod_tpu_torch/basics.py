@@ -74,6 +74,7 @@ class Runtime:
         self.timeline = None            # HVDTPU_TIMELINE or start_timeline
         self.tracer = None              # tracing.Tracer, set by the coordinator
         self.metrics_pusher = None      # telemetry.MetricsPusher (launcher)
+        self.autotuner = None           # autotune.ParameterManager
         self._shutdown = False
 
     def check_alive(self):
@@ -192,6 +193,21 @@ def init(comm=None, process_sets=None, device=None):
             runtime.process_set_table.register(ps)
         runtime.coordinator = Coordinator(runtime)
         runtime.coordinator.start()
+        if envparse.get_bool(envparse.AUTOTUNE):
+            from .autotune import ParameterManager
+            runtime.autotuner = ParameterManager(runtime)
+        else:
+            # Tuned overlay values survive elastic re-inits on purpose
+            # (the new cohort's tuner re-validates them), but an init
+            # without a tuner has nothing to re-validate: drop them, so
+            # that a stale tuned value from an earlier job in this process
+            # cannot shadow the explicit knobs. The sys.modules guard keeps
+            # the disabled path free of the import.
+            import sys
+            overlay_mod = sys.modules.get(
+                "horovod_tpu_torch.autotune.overlay")
+            if overlay_mod is not None and overlay_mod.snapshot():
+                overlay_mod.clear()
         timeline_path = envparse.get_str(envparse.TIMELINE, "")
         if timeline_path:
             from .timeline import Timeline

@@ -30,8 +30,9 @@ is pickled straight into the file while its hash is taken, so a save holds
 no second copy of the state in memory.
 
 The JAX package's legacy orbax directories are not read here: restoring
-one raises, naming that format. Its ``checkpoint:corrupt`` chaos point is
-not ported.
+one raises, naming that format. ``checkpoint`` is a chaos injection point
+(``checkpoint:corrupt`` flips payload bytes after the file lands), so the
+fallback to an older intact step is rehearsable on demand.
 
     from horovod_tpu_torch import checkpoint as ckpt
 
@@ -51,6 +52,7 @@ import numpy as np
 import torch
 
 from . import basics
+from . import chaos
 from .exceptions import CheckpointCorruptError
 from .telemetry import core as telemetry
 from .utils import envparse
@@ -201,6 +203,23 @@ def _write_file(path, state):
             os.close(dir_fd)
     except OSError:
         pass  # directories that refuse an O_RDONLY fsync (some FSes)
+    try:
+        chaos.inject("checkpoint", name=os.path.basename(path))
+    except chaos.ChaosSignal as sig:
+        if sig.action == "corrupt":
+            _chaos_corrupt(path, w.length)
+
+
+def _chaos_corrupt(path, payload_len):
+    """Chaos ``checkpoint:corrupt``: flip bytes in the middle of the
+    just-written payload (length preserved) so the checksum fails."""
+    with open(path, "r+b") as f:
+        f.seek(len(MAGIC) + max(0, payload_len // 2 - 8))
+        chunk = f.read(16)
+        f.seek(-len(chunk), os.SEEK_CUR)
+        f.write(bytes(b ^ 0xFF for b in chunk))
+    get_logger().warning("chaos: corrupted checkpoint payload in %s",
+                         path)
 
 
 def _verify_open(f, keep=False):

@@ -172,6 +172,12 @@ CODECS = {c.name: c for c in (NoneCodec(), FP16CastCodec(),
                               FP8BlockCodec())}
 
 
+def fp8_supported():
+    """True when this torch build has ``float8_e4m3fn`` (the autotuner's
+    codec-availability key; the JAX package's ``fp8_supported``)."""
+    return hasattr(torch, "float8_e4m3fn")
+
+
 def get_codec(name):
     codec = CODECS.get(name)
     if codec is None:

@@ -30,6 +30,7 @@ import time
 
 import torch
 
+from . import chaos
 from .exceptions import DuplicateNameError, HorovodInternalError
 from .telemetry import core as telemetry
 from .telemetry import span as tele_span
@@ -134,7 +135,7 @@ class TensorEntry:
     __slots__ = ("name", "kind", "tensors", "op", "root_rank", "splits",
                  "prescale", "postscale", "process_set", "handle",
                  "enqueue_time", "ready", "device", "site", "codec",
-                 "uneven", "guard_token", "corr")
+                 "uneven", "guard_token", "corr", "chaos_mismatch")
 
     def __init__(self, name, kind, tensors, process_set, op=None,
                  root_rank=None, splits=None, prescale=None, postscale=None,
@@ -166,6 +167,9 @@ class TensorEntry:
         # The trace plane's occurrence number of this name (its
         # correlation key across ranks), stamped by Tracer.on_submit.
         self.corr = None
+        # Chaos 'collective:mismatch': the guardian publishes a corrupted
+        # digest for this submission.
+        self.chaos_mismatch = False
         self.device = tensors[0].device if tensors else None
         self.ready = None
         if self.device is not None and self.device.type == "cuda":
@@ -190,6 +194,9 @@ class Coordinator:
         self.fusion_threshold = envparse.get_int(
             envparse.FUSION_THRESHOLD, DEFAULT_FUSION_THRESHOLD)
         self._queue = []
+        # Chaos 'collective:stall' victims: never dispatched, kept so that
+        # an abort or shutdown still fails their waiters.
+        self._chaos_stalled = []
         # Set when a watchdog abort could not release the backend's work.
         self._broken = None
         # Launcher jobs with a watchdog: its scan runs on a thread of its
@@ -312,6 +319,9 @@ class Coordinator:
         from . import tracing
         self._tracer = tracing.make_tracer(runtime)
         runtime.tracer = self._tracer
+        # Chaos 'collective' point (HVDTPU_CHAOS): cached, so that the
+        # disabled path costs one attribute check per submission.
+        self._chaos_on = chaos.enabled()
 
     # -- lifecycle ---------------------------------------------------------
     def start(self):
@@ -350,8 +360,9 @@ class Coordinator:
         if self._watch_thread is not None:
             self._watch_thread.join(timeout=10)
         with self._lock:
-            stranded = self._queue
+            stranded = self._queue + self._chaos_stalled
             self._queue = []
+            self._chaos_stalled = []
             self._pending_names.clear()
         for e in stranded:
             e.handle._fail(HorovodInternalError(
@@ -359,6 +370,19 @@ class Coordinator:
 
     # -- submission (framework-thread side) --------------------------------
     def submit(self, entry):
+        if self._chaos_on:
+            # A matching fail rule raises HorovodInternalError here, the
+            # exception a real collective failure surfaces, so that the
+            # elastic restore path runs end to end. The signal actions
+            # (stall, mismatch) are applied here.
+            try:
+                chaos.inject("collective", name=entry.name,
+                             kind=entry.kind)
+            except chaos.ChaosSignal as sig:
+                if sig.action == "stall":
+                    return self._chaos_swallow(entry)
+                if sig.action == "mismatch":
+                    entry.chaos_mismatch = True
         if entry.kind == "allreduce" and (self._compression is not None
                                           or entry.codec is not None):
             if self._compression is None:
@@ -397,6 +421,21 @@ class Coordinator:
             self._queue.append(entry)
             self.submitted += 1
         self._wakeup.set()
+        return entry.handle
+
+    def _chaos_swallow(self, entry):
+        """Chaos 'collective:stall': this rank never submits the op, its
+        peers stall on it and the watchdog has to name this rank and
+        abort. The entry waits in ``_chaos_stalled``, so that the abort
+        (or shutdown) still fails its waiter."""
+        with self._lock:
+            if not self._running:
+                raise HorovodInternalError(
+                    "Coordinator is shut down; cannot submit operations")
+            self._chaos_stalled.append(entry)
+        self._log.warning(
+            "chaos: collective %r swallowed (stall injection): this rank "
+            "will never submit it", entry.name)
         return entry.handle
 
     def _duplicate_error(self, entry, key):
@@ -508,12 +547,18 @@ class Coordinator:
                 self._m_cycle_s.observe(busy)
                 self._m_queue_depth.set(len(batch))
             self.tensors_processed += processed
-            self.bytes_processed = backend.core.bytes_processed()
+            self.bytes_processed = backend.bytes_processed()
             timeline = self.runtime.timeline
             if processed and timeline is not None and timeline.mark_cycles:
                 # Only cycles that moved tensors; idle ticks would flood
                 # the trace.
                 timeline.marker("CYCLE_START", ts_us=cycle_ts_us)
+            tuner = getattr(self.runtime, "autotuner", None)
+            if tuner is not None:
+                # Candidate switches are driven by the count of cycles
+                # that moved bytes, so every rank applies the same knob
+                # at the same negotiation round.
+                tuner.record_cycle()
             if self.stall_warn_s > 0 and self._watch_thread is None:
                 self._check_stalls()
 
@@ -573,6 +618,10 @@ class Coordinator:
                 age = now - info[0]
                 if age > self._stall_observe_s:
                     stalled.append((key[1], age, info[1]))
+            for e in self._chaos_stalled:
+                age = now - e.enqueue_time
+                if age > self._stall_observe_s:
+                    stalled.append((e.name, age, None))
         wd = self._watchdog
         peer_abort = None
         if wd is not None:
@@ -654,8 +703,9 @@ class Coordinator:
             self._tracer.dump_postmortem("collective_abort")
         self._watchdog.post_abort(diagnostic)
         with self._lock:
-            victims = self._queue
+            victims = self._queue + self._chaos_stalled
             self._queue = []
+            self._chaos_stalled = []
             self._pending_names.clear()
         try:
             self.runtime.backend.watchdog_abort(exc)
@@ -714,6 +764,9 @@ class Coordinator:
             return
         self._m_queue_depth.set(len(batch))
         self.cycles += 1
+        tuner = getattr(self.runtime, "autotuner", None)
+        if tuner is not None:
+            tuner.record_cycle()
         timeline = self.runtime.timeline
         if timeline is not None and timeline.mark_cycles:
             timeline.marker("CYCLE_START")

@@ -23,9 +23,12 @@ inside a process. The exit-restart path below is kept, keyed as in the
 JAX package on ``HVDTPU_CPU_OPERATIONS`` naming the delegated plane (the
 JAX package needs it because ``jax.distributed`` cannot re-form).
 
-Not ported: the tracing plane's events, the chaos ``worker`` point, the
-watchdog's ``CollectiveAbortError`` (ROADMAP queue A, items 11 and 13) and
-the exit markers of control-plane HA (item 13).
+Each commit is the chaos ``worker`` point (after the save, so that a
+preempt hand-off persists current progress). Under control-plane HA
+(``HVDTPU_RENDEZVOUS_ADDRS`` exported by the driver) a worker leaves a
+durable exit marker, ``elastic.exit/<worker id> = rc``, on success,
+preemption and restart exits: a promoted standby, which never spawned the
+worker, reaps the marker instead of an exit code.
 """
 
 import functools
@@ -35,6 +38,7 @@ import threading
 import time
 
 from . import basics, tracing
+from .chaos import inject as _chaos_inject
 from .exceptions import (PREEMPT_EXIT_CODE, RESTART_EXIT_CODE,
                          CollectiveAbortError, HorovodInternalError,
                          HostsUpdatedInterrupt)
@@ -94,6 +98,10 @@ class State:
         self.save()
         _m_commits().inc()
         self._commits += 1
+        # Chaos 'worker' point: commit boundaries are where preemption /
+        # hang scenarios are injected (after_commits matcher). Fires
+        # AFTER save() so a preempt hand-off persists current progress.
+        _chaos_inject("worker", commits=self._commits)
         self.check_host_updates()
 
     def check_host_updates(self):
@@ -197,6 +205,33 @@ def _reset():
 _PREEMPT = {"installed": False, "requested": False}
 
 
+def _publish_exit_marker(code):
+    """Best-effort ``elastic.exit/<wid> = rc`` KV marker. The durable
+    exit record a *promoted standby* driver — which never spawned this
+    process and so cannot ``proc.poll()`` it — reaps instead of an
+    exit code (runner/elastic_driver.py ``_AdoptedProc``). Crashes
+    leave no marker; the heartbeat timeout covers those."""
+    if not envparse.get_str(envparse.RENDEZVOUS_ADDRS, ""):
+        # Exit markers only matter to a driver that could ADOPT this
+        # worker, i.e. when a standby endpoint list was exported.
+        # Without HA the driver reaps real exit codes, and the
+        # disabled-mode contract promises zero extra KV traffic.
+        return
+    from .runner import http_client
+    from .runner import rendezvous as rdv
+    cfg = rdv.rendezvous_config()
+    wid = envparse.get_str(envparse.WORKER_ID)
+    if cfg is None or not wid:
+        return
+    addr, port, token = cfg
+    try:
+        http_client.put_kv(addr, port, rdv.EXIT_SCOPE, wid, str(code),
+                           token=token, retries=2, deadline=5.0)
+    except Exception as e:  # noqa: BLE001 — markers must never block exit
+        get_logger().debug("elastic: could not publish exit marker: %s",
+                           e)
+
+
 def preempt_requested():
     """True once SIGTERM has been received (elastic workers only)."""
     return _PREEMPT["requested"]
@@ -241,6 +276,7 @@ def _graceful_preempt_exit(state, log):
     except Exception as e:  # noqa: BLE001 - exit regardless
         log.warning("elastic: could not persist commit during "
                     "preemption hand-off: %s", e)
+    _publish_exit_marker(PREEMPT_EXIT_CODE)
     try:
         basics.shutdown()
     except Exception:  # noqa: BLE001
@@ -337,6 +373,7 @@ def _persist_and_exit(state, log, rereq):
         http_client.put_kv(addr, port, rdv.ELASTIC_SCOPE,
                            f"rereq.{wid}", str(_joined_version() + 1),
                            token=token)
+    _publish_exit_marker(RESTART_EXIT_CODE)
     log.info("elastic: persisting commit and exiting for process "
              "restart")
     try:
@@ -406,7 +443,14 @@ def run_fn(func, reset=_reset):
             if not skip_sync:
                 state.sync()
             try:
-                return func(state, *args, **kwargs)
+                result = func(state, *args, **kwargs)
+                if envparse.get_bool(envparse.ELASTIC):
+                    # Durable success marker for a control plane that
+                    # survived a failover: a promoted standby has no
+                    # process handle on this worker and reaps the
+                    # marker instead of an exit code.
+                    _publish_exit_marker(0)
+                return result
             except HorovodInternalError as e:
                 aborted = isinstance(e, CollectiveAbortError)
                 tracing.trace_event(

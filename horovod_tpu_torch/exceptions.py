@@ -90,3 +90,10 @@ class CheckpointCorruptError(RuntimeError):
     """A checkpoint file failed its integrity check (truncated, checksum
     mismatch, foreign format) and no intact fallback was available
     (``checkpoint.py``)."""
+
+
+class ChaosInjectedError(RuntimeError):
+    """A chaos ``fail`` injection fired at a point with no more specific
+    error type (``HVDTPU_CHAOS``; ``chaos/``). KV points raise transport
+    errors and collective points raise ``HorovodInternalError`` instead,
+    so recovery paths see exactly the exceptions real faults produce."""

@@ -365,10 +365,28 @@ class ConsistencyGuard:
             occ = self._occ.get(entry.name, 0) + 1
             self._occ[entry.name] = occ
         digest = entry_digest(entry)
+        published = (self._perturb(digest) if entry.chaos_mismatch
+                     else digest)
         self.board.put(f"{_DIGEST_PREFIX}.{entry.name}.{self.rank}",
-                       f"{occ}|{render_digest(digest)}")
+                       f"{occ}|{render_digest(published)}")
         if seq % self.every == 0:
+            # `digest` is the truth before the perturbation (_perturb
+            # copies), so a chaos-corrupted rank still flags itself.
             entry.guard_token = (entry.name, occ, digest)
+
+    @staticmethod
+    def _perturb(digest):
+        """Chaos ``collective:mismatch``: publish a digest whose shapes
+        (or dtype, for shapeless ops) disagree with what this rank
+        actually submitted, so that peers and this rank's own verify
+        flag it."""
+        digest = dict(digest)
+        if digest["shapes"]:
+            digest["shapes"] = [[s + 1 for s in shape] or [1]
+                                for shape in digest["shapes"]]
+        else:
+            digest["dtype"] = "chaos-corrupted"
+        return digest
 
     # -- dispatch side (the cycle thread) --------------------------------
     def verify(self, entry):

@@ -86,6 +86,7 @@ def load_library():
             "hvd_core_bytes_processed": (ctypes.c_uint64, [c_void_p]),
             "hvd_core_set_topology": (None, [c_void_p, p_i32, c_int,
                                              c_int64]),
+            "hvd_core_set_fusion_threshold": (None, [c_void_p, c_int64]),
             "hvd_core_next_delegated": (c_int64, [c_void_p]),
             "hvd_core_delegated_info": (c_int, [
                 c_void_p, c_int64, p_i32, p_i32, p_i32, p_i32, p_f64, p_f64,
@@ -332,6 +333,12 @@ class NativeCore:
 
     def release(self, handle):
         self._lib.hvd_core_release(self._ctx, handle)
+
+    def set_fusion_threshold(self, nbytes):
+        """Apply an autotuned fusion threshold (every rank calls it with
+        the same value at the same cycle boundary: the autotuner does, on
+        the cycle thread, between two negotiation rounds)."""
+        self._lib.hvd_core_set_fusion_threshold(self._ctx, int(nbytes))
 
     def set_topology(self, host_of, threshold):
         """Host map for hierarchical collectives: ``host_of[r]`` is the

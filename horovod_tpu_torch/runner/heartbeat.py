@@ -21,13 +21,15 @@ process startup (imports, the native core's build, rendezvous) is
 governed by the launcher's start timeout, and judging it by heartbeat
 silence would just re-implement that timeout with a harsher penalty.
 
-Not ported: the ``heartbeat`` chaos point (ROADMAP queue A, item 13).
+Each beat is the ``heartbeat`` chaos point; its failures are swallowed
+like any other failed beat.
 """
 
 import os
 import threading
 import time
 
+from ..chaos import inject as _chaos_inject
 from ..telemetry import core as telemetry
 from ..utils import envparse
 from ..utils.logging_util import get_logger
@@ -96,6 +98,7 @@ class HeartbeatThread:
         while not self._stop.is_set():
             self._count += 1
             try:
+                _chaos_inject("heartbeat", wid=self._worker_id)
                 # Tight retry budget: a beat that cannot land within one
                 # interval is worth less than the NEXT beat — backing up
                 # stale beats behind a long retry would delay detection.
@@ -122,13 +125,15 @@ class HeartbeatThread:
                     # the moment the driver killed it as hung. One
                     # warning per streak, naming where the beats were
                     # going.
+                    addr, port = http_client.active_endpoint(
+                        self._addr, self._port)
                     self._log.warning(
                         "heartbeat: %d consecutive beat failures "
                         "against %s:%d (last: %s) — this worker may be "
                         "partitioned from the control plane; the "
                         "driver will declare it hung after "
                         "HVDTPU_HEARTBEAT_TIMEOUT", self._consec_errors,
-                        self._addr, self._port, e)
+                        addr, port, e)
                 else:
                     self._log.debug("heartbeat: beat %d failed: %s",
                                     self._count, e)

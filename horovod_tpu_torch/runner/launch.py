@@ -7,28 +7,25 @@
         python train.py
     python -m horovod_tpu_torch.runner.launch -np 2 --min-np 1 --max-np 4 \\
         --host-discovery-script ./discover.sh python train.py   (elastic)
+    python -m horovod_tpu_torch.runner.launch -np 2 --min-np 2 \\
+        --host-discovery-script ./discover.sh --journal-dir /var/hvd/j \\
+        --standby-endpoints host2:7000 python train.py   (HA primary)
+    HVDTPU_DRIVER_PORT=7000 python -m horovod_tpu_torch.runner.launch \\
+        -np 2 --min-np 2 --host-discovery-script ./discover.sh \\
+        --standby host1:7001 python train.py             (warm standby)
 
 Runtime knobs are flags that become HVDTPU_* env for the workers (the
 reference's config_parser pattern,
-horovod/runner/common/util/config_parser.py). The flags of subsystems the
-port has not ported yet raise ``NotImplementedError`` naming their ROADMAP
-item: ``--journal-dir``, ``--standby``, ``--standby-endpoints`` and
-``--driver-port`` (control-plane HA), ``--autotune`` and
-``--autotune-log-file`` (item 13).
+horovod/runner/common/util/config_parser.py). The HA pair shares
+``HVDTPU_JOB_TOKEN``. The JAX launcher's ``--config-file``,
+``--check-build`` and ``--network-interface`` are not in this parser yet
+(ROADMAP queue A, item 13).
 """
 
 import argparse
 import sys
 
 from .job import Settings, launch_job
-
-# Flags of subsystems not ported yet -> their ROADMAP item (queue A).
-_NOT_PORTED = {"journal_dir": ("--journal-dir", 13),
-               "standby": ("--standby", 13),
-               "standby_endpoints": ("--standby-endpoints", 13),
-               "driver_port": ("--driver-port", 13),
-               "autotune": ("--autotune", 13),
-               "autotune_log_file": ("--autotune-log-file", 13)}
 
 
 def parse_args(argv=None):
@@ -69,6 +66,26 @@ def parse_args(argv=None):
                              "enables elastic mode")
     parser.add_argument("--reset-limit", type=int, default=None,
                         help="max elastic resets before the job aborts")
+    # Control-plane HA: journaled driver state + warm-standby failover.
+    parser.add_argument("--journal-dir", default=None,
+                        help="directory for the driver's control-plane "
+                             "journal (sets HVDTPU_DRIVER_JOURNAL; "
+                             "enables the /journal standby-sync route)")
+    parser.add_argument("--standby", default=None, metavar="HOST:PORT",
+                        help="run as a warm STANDBY tailing the primary "
+                             "driver at HOST:PORT; promotes itself when "
+                             "the primary's lease expires (requires the "
+                             "shared HVDTPU_JOB_TOKEN)")
+    parser.add_argument("--standby-endpoints", default=None,
+                        metavar="HOST:PORT[,...]",
+                        help="primary: ordered standby endpoints exported "
+                             "to workers as HVDTPU_RENDEZVOUS_ADDRS for "
+                             "KV failover (sets "
+                             "HVDTPU_DRIVER_STANDBY_ADDRS)")
+    parser.add_argument("--driver-port", type=int, default=None,
+                        help="fixed KV-store listen port (default: "
+                             "ephemeral; standbys need one workers can "
+                             "be told in advance)")
     # Runtime knobs of the control plane -> env.
     parser.add_argument("--fusion-threshold-mb", type=float, default=None)
     parser.add_argument("--cycle-time-ms", type=float, default=None)
@@ -82,27 +99,17 @@ def parse_args(argv=None):
                         help="min buffer MiB before multi-host collectives "
                              "take the two-level intra/cross-host path; 0 "
                              "disables")
+    parser.add_argument("--autotune", action="store_true")
+    parser.add_argument("--autotune-log-file", default=None)
     parser.add_argument("--log-level", default=None)
     parser.add_argument("--stall-check-disable", action="store_true")
     parser.add_argument("--stall-check-time-seconds", type=float,
                         default=None)
     parser.add_argument("--stall-shutdown-time-seconds", type=float,
                         default=None)
-    # Flags of subsystems the port has not ported: accepted by the parser
-    # so that the refusal names its ROADMAP item.
-    parser.add_argument("--journal-dir", default=None)
-    parser.add_argument("--standby", default=None)
-    parser.add_argument("--standby-endpoints", default=None)
-    parser.add_argument("--driver-port", type=int, default=None)
-    parser.add_argument("--autotune", action="store_true")
-    parser.add_argument("--autotune-log-file", default=None)
     parser.add_argument("command", nargs=argparse.REMAINDER,
                         help="the training command to run on every slot")
     args = parser.parse_args(argv)
-    for dest, (flag, item) in _NOT_PORTED.items():
-        if getattr(args, dest) not in (None, False):
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP queue A, item {item})")
     if args.version:
         return args
     if not args.command:
@@ -128,6 +135,10 @@ def _knob_env(args):
     if args.hierarchical_threshold_mb is not None:
         env["HVDTPU_HIERARCHICAL_THRESHOLD"] = str(
             int(args.hierarchical_threshold_mb * 1024 * 1024))
+    if args.autotune:
+        env["HVDTPU_AUTOTUNE"] = "1"
+    if args.autotune_log_file:
+        env["HVDTPU_AUTOTUNE_LOG"] = args.autotune_log_file
     if args.log_level:
         env["HVDTPU_LOG_LEVEL"] = args.log_level
     if args.stall_check_disable:
@@ -153,7 +164,8 @@ def run_commandline(argv=None):
         prefix_output=not args.disable_prefix_output, env=_knob_env(args),
         output_filename=args.output_filename,
         ssh_port=args.ssh_port, ssh_identity_file=args.ssh_identity_file)
-    if args.host_discovery_script or args.min_np or args.max_np:
+    if (args.host_discovery_script or args.min_np or args.max_np
+            or args.standby):
         from .elastic_driver import ElasticSettings, launch_elastic_job
         elastic = ElasticSettings(
             settings,
@@ -162,7 +174,13 @@ def run_commandline(argv=None):
             # None = uncapped: -np is the *starting* size, not a growth
             # limit (matching horovodrun, where --max-np is optional).
             max_np=args.max_np,
-            reset_limit=args.reset_limit)
+            reset_limit=args.reset_limit,
+            journal_dir=args.journal_dir,
+            standby_addrs=args.standby_endpoints,
+            driver_port=args.driver_port)
+        if args.standby:
+            from .standby import launch_standby
+            return launch_standby(elastic, args.command, args.standby)
         return launch_elastic_job(elastic, args.command)
     return launch_job(settings, args.command)
 

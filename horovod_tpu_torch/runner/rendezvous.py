@@ -8,9 +8,11 @@ worker reserves the TCP port of its native-core listener, publishes
 ``rank -> ip:port``, then polls until every peer has published, yielding
 the ``HVDTPU_PEERS`` list the native core consumes.
 
-Not ported: the republish hooks of control-plane HA (a failed-over store
-that lost the peer scope) and the exit-marker scope (ROADMAP queue A,
-item 13).
+Control-plane HA: with ``HVDTPU_RENDEZVOUS_ADDRS`` (the ordered endpoint
+list the driver exports) the store's address is the KV client's active
+endpoint, a worker republishes its peer key after a failover (peer keys are
+ephemeral, never journaled), and a peer wait re-verifies its own key while
+it waits.
 """
 
 import os
@@ -19,8 +21,16 @@ import time
 
 from . import http_client
 from ..utils import envparse
+from ..utils.logging_util import get_logger
 
 PEER_SCOPE = "peers"
+#: Durable worker exit markers (elastic.py writes rc on success/
+#: preempt/restart exits) — how a promoted standby, which never
+#: spawned the cohort, observes worker completion.
+EXIT_SCOPE = "elastic.exit"
+#: How often a peer-waiting worker re-verifies its OWN published key
+#: (a restored/failed-over store may have lost the ephemeral scope).
+REPUBLISH_CHECK_S = 1.0
 
 
 def _local_ip_towards(addr, port):
@@ -44,12 +54,26 @@ def _reserve_port():
 
 
 def rendezvous_config():
-    """(addr, port, token) of the launcher's KV store, or None."""
+    """(addr, port, token) of the launcher's KV store, or None. With
+    an ``HVDTPU_RENDEZVOUS_ADDRS`` failover list configured, the
+    *active* endpoint is returned — callers holding the tuple across a
+    takeover still reach the store because the KV client re-resolves
+    per call, but fresh lookups should not dial a known-dead primary."""
     token = envparse.get_str(envparse.JOB_TOKEN)
     addr = envparse.get_str(envparse.RENDEZVOUS_ADDR, "")
     port = envparse.get_int(envparse.RENDEZVOUS_PORT, 0)
     if not addr or not port:
-        return None
+        addrs = envparse.get_str(envparse.RENDEZVOUS_ADDRS, "")
+        if not addrs:
+            return None
+        try:
+            endpoints = http_client.parse_endpoints(addrs)
+        except ValueError:
+            return None
+        if not endpoints:
+            return None
+        addr, port = endpoints[0]
+    addr, port = http_client.active_endpoint(addr, port)
     return addr, port, token
 
 
@@ -76,16 +100,53 @@ def bootstrap_peers(topology, deadline_s=None, scope=None, my_addr=None):
     if my_addr is None:
         my_ip = _local_ip_towards(addr, port)
         my_addr = f"{my_ip}:{_reserve_port()}"
-    http_client.put_kv(addr, port, scope, str(topology.rank), my_addr,
-                       token=token)
+    my_key = str(topology.rank)
+    http_client.put_kv(addr, port, scope, my_key, my_addr, token=token)
+    _arm_republish(scope, my_key, my_addr, token)
+
+    def _heal_own_key():
+        # Self-healing while we wait on peers: verify OUR OWN key is
+        # still published and re-put it when the scope vanished (a
+        # restarted store, or a failover to a standby that
+        # deliberately does not replicate ephemeral peer keys) —
+        # without this, every worker waits out the full deadline
+        # against a store that will never hold the address it already
+        # "published".
+        mine = http_client.get_kv(addr, port, scope, my_key,
+                                  token=token, retries=1, deadline=2.0)
+        if mine is None:
+            get_logger().warning(
+                "rendezvous: own peer key %s/%s missing from the "
+                "store (restore/failover?); republishing", scope,
+                my_key)
+            http_client.put_kv(addr, port, scope, my_key, my_addr,
+                               token=token, retries=1, deadline=2.0)
+
     peers = []
     for r in range(topology.size):
-        value = http_client.wait_for_kv(addr, port, scope, str(r),
-                                        token=token, deadline_s=deadline_s)
+        value = http_client.wait_for_kv(
+            addr, port, scope, str(r), token=token,
+            deadline_s=deadline_s, heal=_heal_own_key,
+            heal_every=REPUBLISH_CHECK_S)
         peers.append(value.decode())
     peers_csv = ",".join(peers)
     os.environ["HVDTPU_PEERS"] = peers_csv
     return peers_csv
+
+
+def _arm_republish(scope, key, value, token):
+    """Register the failover re-registration hook for this worker's
+    peer key: peer addresses are EPHEMERAL by the HA contract (never
+    journaled), so after a takeover the worker republishes its own
+    rank -> ip:port mapping against the new primary."""
+    def _republish():
+        cfg = rendezvous_config()
+        if cfg is None:
+            return
+        a, p, tok = cfg
+        http_client.put_kv(a, p, scope, key, value, token=tok,
+                           retries=2, deadline=5.0)
+    http_client.on_new_primary("rendezvous.peer", _republish)
 
 
 # -- elastic assignment protocol ------------------------------------------

@@ -115,14 +115,55 @@ class DistributedOptimizer:
                     "zero=True (HVDTPU_ZERO) does not compose with "
                     "backward_passes_per_step > 1 (accumulate micro-"
                     "batch gradients before the step instead)")
+            from .autotune import overlay
             from .ops import zero as zero_ops
-            codec, block = self._zero_codec()
-            self._zero_rt = zero_ops.ZeroRuntime(
-                optimizer, op=op, bucket_bytes=envparse.get_int(
-                    envparse.ZERO_BUCKET_BYTES,
-                    zero_ops.DEFAULT_ZERO_BUCKET_BYTES),
-                codec=codec, block=block, prescale=prescale_factor,
-                postscale=postscale_factor)
+            # The autotuner's tuned value wins over the environment's
+            # (autotune/overlay.py); a later change re-plans at the next
+            # step (_zero_overlay_stale).
+            self._zero_overlay_gen = overlay.generation()
+            self._zero_overlay_pin = False
+            self._zero_rt = self._make_zero_rt(overlay.resolve_int(
+                envparse.ZERO_BUCKET_BYTES,
+                zero_ops.DEFAULT_ZERO_BUCKET_BYTES))
+
+    def _make_zero_rt(self, bucket_bytes):
+        from .ops import zero as zero_ops
+        codec, block = self._zero_codec()
+        return zero_ops.ZeroRuntime(
+            self.inner, op=self.op, bucket_bytes=bucket_bytes,
+            codec=codec, block=block, prescale=self.prescale,
+            postscale=self.postscale)
+
+    def _zero_overlay_stale(self):
+        """True when the autotuner's overlay moved
+        ``HVDTPU_ZERO_BUCKET_BYTES`` under this optimizer (a zero-arm
+        candidate mid-sweep, or a warm-started config landing after
+        construction): the caller re-plans the shards. One int compare
+        per step until the overlay moves."""
+        from .autotune import overlay
+        if self._zero_overlay_pin:
+            return False
+        gen = overlay.generation()
+        if gen == self._zero_overlay_gen:
+            return False
+        self._zero_overlay_gen = gen
+        v = overlay.get_int(envparse.ZERO_BUCKET_BYTES)
+        if v is None or int(v) == self._zero_rt.bucket_bytes:
+            return False
+        return int(v)
+
+    def _zero_replan(self):
+        """Re-bucket the shards onto the overlay's new bucket bytes: the
+        state moves through its world-size-independent form
+        (``full_state_dict``), the route an elastic reshard takes."""
+        v = self._zero_overlay_stale()
+        if not v:
+            return
+        old = self._zero_rt
+        new = self._make_zero_rt(v)
+        if old.inner is not None:
+            new.load_full_state_dict(old.full_state_dict())
+        self._zero_rt = new
 
     # -- ZeRO-1 mode -------------------------------------------------------
     def _zero_codec(self):
@@ -158,6 +199,7 @@ class DistributedOptimizer:
                 "ZeRO mode: call init() (or run through make_train_step) "
                 "before update — the sharded state and shard plan are "
                 "built there")
+        self._zero_replan()
         return self._zero_rt.update()
 
     def state_dict(self):
@@ -250,6 +292,7 @@ class DistributedOptimizer:
         if self._passes % self.k:
             return False
         if self.zero:
+            self._zero_replan()
             self._zero_rt.apply()
             return True
         self.synchronize()
@@ -264,8 +307,8 @@ def make_train_step(loss_fn, dist_opt, has_aux=False):
     ``loss_fn(model, batch) -> scalar loss`` runs on this rank's shard of
     the batch. The returned ``step(model, batch) -> loss`` runs forward and
     backward, lets ``dist_opt`` reduce the gradients and update (clearing
-    them after each update), and returns the loss averaged across ranks,
-    detached. ``dist_opt`` is this module's :class:`DistributedOptimizer`
+    them after each update, and after a failed backward or update), and
+    returns the loss averaged across ranks, detached. ``dist_opt`` is this module's :class:`DistributedOptimizer`
     or an optimizer wrapped by ``horovod_tpu_torch.torch.
     DistributedOptimizer`` (stepped every ``backward_passes_per_step``
     calls).
@@ -295,8 +338,21 @@ def make_train_step(loss_fn, dist_opt, has_aux=False):
 
     def step(model, batch):
         loss = loss_fn(model, batch)
-        loss.backward()
-        if update():
+        try:
+            loss.backward()
+            updated = update()
+        except BaseException:
+            # A failed reduction (a dead peer, an abort) leaves no
+            # gradients behind: the elastic restore runs the step again
+            # from the last commit, and its backward must not accumulate
+            # into the failed attempt's gradients (the JAX step is a
+            # function of its inputs). The accumulation window restarts.
+            dist_opt.zero_grad()
+            passes[0] = 0
+            if not hooked:
+                dist_opt._passes = 0
+            raise
+        if updated:
             dist_opt.zero_grad()
         if has_aux:
             aux = [b for b in model.buffers() if b.is_floating_point()]
@@ -344,6 +400,9 @@ def make_zero_train_step(loss_fn, dist_opt):
     zopt._passes = 0
     zopt._zero_rt = zero_ops.ZeroRuntime(dist_opt.inner,
                                          bucket_bytes=1 << 62)
+    # Pinned against the autotune overlay: a zero-arm retune would break
+    # the one-vector-per-dtype state this entry promises.
+    zopt._zero_overlay_pin = True
 
     def init_state():
         zopt.init()

@@ -224,6 +224,106 @@ CHECKPOINT_KEEP = register(
     "CHECKPOINT_KEEP", "0",
     "Keep only the newest N step_<N> checkpoints; 0 keeps everything")
 
+# -- autotuner (autotune/) ----------------------------------------------------
+AUTOTUNE = register(
+    "AUTOTUNE", "0", "Enable the successive-halving parameter sweep")
+AUTOTUNE_LOG = register(
+    "AUTOTUNE_LOG", "", "CSV of per-round candidate scores")
+AUTOTUNE_FUSION_CANDIDATES_MIB = register(
+    "AUTOTUNE_FUSION_CANDIDATES_MIB", "0..128", "Fusion-threshold grid")
+AUTOTUNE_CYCLE_CANDIDATES_MS = register(
+    "AUTOTUNE_CYCLE_CANDIDATES_MS", "0.1..10", "Cycle-time grid")
+AUTOTUNE_BUCKET_CANDIDATES = register(
+    "AUTOTUNE_BUCKET_CANDIDATES", "256,4096,65536",
+    "Delegated-plane bucket floors")
+AUTOTUNE_WARMUP_CYCLES = register(
+    "AUTOTUNE_WARMUP_CYCLES", "10", "Active cycles before scoring")
+AUTOTUNE_CYCLES_PER_CANDIDATE = register(
+    "AUTOTUNE_CYCLES_PER_CANDIDATE", "20",
+    "Scoring budget of the final halving round")
+AUTOTUNE_CACHE = register(
+    "AUTOTUNE_CACHE", "",
+    "Persistent warm-start store (JSON): converged winners per "
+    "(model-signature, world-size, codec-availability) key, applied "
+    "before the first scored window on repeat runs; inspect with "
+    "hvd-autotune")
+AUTOTUNE_SIGNATURE = register(
+    "AUTOTUNE_SIGNATURE", "",
+    "Explicit model-signature half of the warm-start key (default: "
+    "hash of the collective names observed during warmup)")
+AUTOTUNE_SCORE = register(
+    "AUTOTUNE_SCORE", "auto",
+    "Candidate score source: auto (trace-derived steps/sec when the "
+    "flight ring shows step structure, bytes/sec otherwise), steps, "
+    "or bytes")
+AUTOTUNE_CONFIRM_CYCLES = register(
+    "AUTOTUNE_CONFIRM_CYCLES", "10",
+    "Scoring window of the warm-start re-validation after an "
+    "elastic-version bump (baseline window + warm window)")
+AUTOTUNE_BUCKET_BYTES_CANDIDATES_MIB = register(
+    "AUTOTUNE_BUCKET_BYTES_CANDIDATES_MIB", "1,4,16,64",
+    "Overlap-plane bucket-bytes grid (the overlap arm; only when "
+    "HVDTPU_OVERLAP is on)")
+AUTOTUNE_COMPRESSION_CANDIDATES = register(
+    "AUTOTUNE_COMPRESSION_CANDIDATES", "",
+    "Compression-codec grid for the compression arm (default: the "
+    "current catch-all codec, none, int8, bf16 — availability-"
+    "filtered; only when a pure catch-all policy is active)")
+AUTOTUNE_COMPRESSION_THRESHOLD_CANDIDATES = register(
+    "AUTOTUNE_COMPRESSION_THRESHOLD_CANDIDATES", "",
+    "Compression element-threshold grid for the compression arm "
+    "(default: the current threshold only)")
+AUTOTUNE_ZERO_BUCKET_CANDIDATES_MIB = register(
+    "AUTOTUNE_ZERO_BUCKET_CANDIDATES_MIB", "4,16,64",
+    "ZeRO-leg bucket-bytes grid (the zero arm; single-controller "
+    "mode with HVDTPU_ZERO on)")
+# The autotuner's prior (analysis/costmodel.py).
+COSTMODEL = register(
+    "COSTMODEL", "0",
+    "Calibrated α–β cost model as an autotuner warm-start prior: the "
+    "sweep probes candidates in the model's predicted order (pure "
+    "prior — measured scores still decide; analysis/costmodel.py)")
+COSTMODEL_TABLE = register(
+    "COSTMODEL_TABLE", "",
+    "Path to a calibrated cost-model table JSON (hvd-lint perf "
+    "--calibrate --write-table); unset falls back to the built-in "
+    "default table")
+
+# -- fault injection (chaos/) --------------------------------------------------
+CHAOS = register(
+    "CHAOS", "",
+    "Fault-injection spec (point:action[:param]*; validate: hvd-chaos)")
+CHAOS_LOG = register(
+    "CHAOS_LOG", "", "Append one line per chaos firing to this file")
+
+# -- control-plane HA (runner/journal.py, runner/standby.py) -------------------
+DRIVER_JOURNAL = register(
+    "DRIVER_JOURNAL", "",
+    "Directory for the driver's append-only fsync'd control-plane "
+    "journal (membership, blacklist, durable KV scopes) + periodic "
+    "snapshot; enables the /journal standby-sync route. Unset: no "
+    "journal I/O at all")
+DRIVER_JOURNAL_SNAPSHOT_EVERY = register(
+    "DRIVER_JOURNAL_SNAPSHOT_EVERY", "256",
+    "Journal entries between full-state snapshots (journal rotation)")
+DRIVER_STANDBY_ADDRS = register(
+    "DRIVER_STANDBY_ADDRS", "",
+    "Primary driver: comma-separated host:port standby endpoints, "
+    "exported to workers as HVDTPU_RENDEZVOUS_ADDRS (primary first) "
+    "so their KV client can fail over")
+DRIVER_LEASE_INTERVAL = register(
+    "DRIVER_LEASE_INTERVAL", "1",
+    "Standby: seconds between /journal polls against the primary "
+    "(each successful poll renews the primary's lease)")
+DRIVER_LEASE_TIMEOUT = register(
+    "DRIVER_LEASE_TIMEOUT", "10",
+    "Standby: promote to primary after the primary has been "
+    "unreachable this long (term bump + takeover)")
+DRIVER_PORT = register(
+    "DRIVER_PORT", "0",
+    "Fixed KV-store listen port for the driver/standby (0 = "
+    "ephemeral; standbys need a port workers can be told in advance)")
+
 # -- gradient compression (compression/) -------------------------------------
 COMPRESSION = register(
     "COMPRESSION", "",
@@ -286,3 +386,4 @@ RENDEZVOUS_PORT = "RENDEZVOUS_PORT"
 WORKER_ID = "WORKER_ID"                  # elastic slot identity
 ELASTIC_VERSION = "ELASTIC_VERSION"      # membership version joined
 JOB_TOKEN = "JOB_TOKEN"                  # KV-store auth token
+RENDEZVOUS_ADDRS = "RENDEZVOUS_ADDRS"    # ordered host:port failover list (HA)

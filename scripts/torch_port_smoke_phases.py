@@ -1,0 +1,66 @@
+"""Run the `[autotune]`, `[chaos]` and `[ha]` phases of ``chip_smoke.py``
+alone on one GPU, without the rest of the script:
+
+    python3 scripts/torch_port_smoke_phases.py [autotune] [chaos] [ha]
+
+Builds the kernels and the native core, trains the flagship TransformerLM
+5 steps on the single-process plane (the reference losses the phases hold
+theirs to; `chip_smoke.py` passes `[native]`'s), then runs the phases
+named (all three by default; `[ha]` needs `[chaos]`'s uninjected control
+and runs it too). Prints the card's name and power limit and
+``PHASES OK`` with the seconds taken.
+"""
+
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+os.chdir(REPO)
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+
+def main(which):
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import _build, models
+    if not torch.cuda.is_available():
+        cs.fail("needs a CUDA device")
+    t0 = time.perf_counter()
+    _build.build_core()
+    _build.build(["flash_attention"])
+    cs.log(f"[build] {time.perf_counter() - t0:.1f} s; "
+           f"{torch.cuda.get_device_name(0)}")
+    hvd.init()
+    _, model, step, x, y = cs.transformer_setup(hvd, models)
+    losses = [step(model, (x, y)).item() for _ in range(cs.TRAIN_STEPS)]
+    cs.log(f"[train] losses {losses}")
+    del model, step
+    torch.cuda.empty_cache()
+    ref = {"transformer_losses": losses}
+    if "autotune" in which:
+        t = time.perf_counter()
+        cs.log(f"[launches] [autotune] {cs.autotune_phase(ref)}")
+        cs.log(f"[time] autotune {time.perf_counter() - t:.1f} s")
+    if "chaos" in which or "ha" in which:
+        t = time.perf_counter()
+        launches, control = cs.chaos_phase(ref)
+        cs.log(f"[launches] [chaos] {launches}")
+        cs.log(f"[time] chaos {time.perf_counter() - t:.1f} s")
+    if "ha" in which:
+        t = time.perf_counter()
+        cs.log(f"[launches] [ha] {cs.ha_phase(control)}")
+        cs.log(f"[time] ha {time.perf_counter() - t:.1f} s")
+    hvd.shutdown()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    cs.log(f"{smi}\nPHASES OK {time.perf_counter() - t0:.1f} s")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:] or ["autotune", "chaos", "ha"])

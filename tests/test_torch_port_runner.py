@@ -296,8 +296,15 @@ def test_driver_exit_codes_and_rereqs_follow_the_jax_driver(monkeypatch):
                                   ["--driver-port", "7"], ["--autotune"],
                                   ["--autotune-log-file", "f"]])
 def test_unported_launcher_flags_raise_with_their_roadmap_item(flag):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tlaunch.parse_args(["-np", "2", *flag, "python", "x.py"])
+    # The HA and autotune flags are ported now (control-plane HA and
+    # autotune/): each parses to the JAX launcher's value and knob env.
+    from horovod_tpu.runner import launch as jlaunch
+    argv = ["-np", "2", *flag, "python", "x.py"]
+    got, want = tlaunch.parse_args(argv), jlaunch.parse_args(argv)
+    for dest in ("journal_dir", "standby", "standby_endpoints",
+                 "driver_port", "autotune", "autotune_log_file"):
+        assert getattr(got, dest) == getattr(want, dest), dest
+    assert tlaunch._knob_env(got) == jlaunch._knob_env(want)
 
 
 def test_launcher_flags_become_the_jax_package_knob_env():

@@ -192,13 +192,25 @@ def test_knobs_and_reduce_ops_match_the_jax_package():
         "SPARSE_EMA", "CONSISTENCY_CHECK", "CONSISTENCY_TIMEOUT",
         "COLLECTIVE_TIMEOUT", "CHECKPOINT_KEEP", "RESHARD_BUCKET_BYTES",
         "METRICS_PUSH_INTERVAL", "METRICS_SNAPSHOT", "METRICS_DUMP",
-        "TRACE", "TRACE_DIR", "FLIGHT_RECORDER", "FLIGHT_RECORDER_EVENTS"}
+        "TRACE", "TRACE_DIR", "FLIGHT_RECORDER", "FLIGHT_RECORDER_EVENTS",
+        "AUTOTUNE", "AUTOTUNE_LOG", "AUTOTUNE_FUSION_CANDIDATES_MIB",
+        "AUTOTUNE_CYCLE_CANDIDATES_MS", "AUTOTUNE_BUCKET_CANDIDATES",
+        "AUTOTUNE_WARMUP_CYCLES", "AUTOTUNE_CYCLES_PER_CANDIDATE",
+        "AUTOTUNE_CACHE", "AUTOTUNE_SIGNATURE", "AUTOTUNE_SCORE",
+        "AUTOTUNE_CONFIRM_CYCLES", "AUTOTUNE_BUCKET_BYTES_CANDIDATES_MIB",
+        "AUTOTUNE_COMPRESSION_CANDIDATES",
+        "AUTOTUNE_COMPRESSION_THRESHOLD_CANDIDATES",
+        "AUTOTUNE_ZERO_BUCKET_CANDIDATES_MIB", "COSTMODEL",
+        "COSTMODEL_TABLE", "CHAOS", "CHAOS_LOG", "DRIVER_JOURNAL",
+        "DRIVER_JOURNAL_SNAPSHOT_EVERY", "DRIVER_STANDBY_ADDRS",
+        "DRIVER_LEASE_INTERVAL", "DRIVER_LEASE_TIMEOUT", "DRIVER_PORT"}
     for name, knob in tenv.KNOBS.items():
         assert getattr(tenv, name) == name
         assert knob["default"] == jenv.KNOBS[name]["default"]
     for name in ("RANK", "SIZE", "LOCAL_RANK", "LOCAL_SIZE", "CROSS_RANK",
                  "CROSS_SIZE", "PEERS", "RENDEZVOUS_ADDR", "RENDEZVOUS_PORT",
-                 "WORKER_ID", "ELASTIC_VERSION", "JOB_TOKEN"):
+                 "WORKER_ID", "ELASTIC_VERSION", "JOB_TOKEN",
+                 "RENDEZVOUS_ADDRS"):
         assert getattr(tenv, name) == getattr(jenv, name)
     for name in ("Average", "Sum", "Adasum", "Min", "Max", "Product"):
         op = getattr(tops, name)

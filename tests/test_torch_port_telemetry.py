@@ -275,12 +275,10 @@ def test_cli_runs_as_a_module(tmp_path):
 
 
 # Families of the JAX package's modules whose port registers none yet, and
-# why. Everything else a ported module's counterpart registers, the port
-# registers under the same name.
-NOT_YET = {
-    "hvd_kv_endpoint_failover_total":
-        "control-plane HA's endpoint failover (runner HA, not ported)",
-}
+# why (none left since control-plane HA was ported). Everything else a
+# ported module's counterpart registers, the port registers under the same
+# name.
+NOT_YET = {}
 _FAMILY = re.compile(r"\b(?:counter|gauge|histogram)\(\s*\"(hvd_[a-z0-9_]+)\"")
 
 

@@ -8,7 +8,8 @@ MODE ``static``: one allreduce of a rank-seeded vector; writes
 tests/elastic_worker.py): ``ObjectState`` epochs of one allreduce each,
 committed every epoch; appends ``<worker id> epoch=E rank=R size=N``
 lines to the log ``OUT``, and may hard-exit once at a configured (worker,
-epoch). MODE ``transformer``: a tiny TransformerLM under ``TorchState``
+epoch), and may remove a file after a configured epoch (the marker of a
+chaos rule of its driver). MODE ``transformer``: a tiny TransformerLM under ``TorchState``
 and the binding's grad-hook ``DistributedOptimizer``; one batch per
 (step, rank) from a seed, a commit per step; may hard-exit once at a
 configured (worker, step) before its backward; rank 0 writes its final
@@ -37,6 +38,10 @@ EPOCHS = int(os.environ.get("ELASTIC_TEST_EPOCHS", "6"))
 EPOCH_SLEEP = float(os.environ.get("ELASTIC_TEST_EPOCH_SLEEP", "0.3"))
 KILL_WORKER = os.environ.get("ELASTIC_TEST_KILL_WORKER", "")
 KILL_EPOCH = int(os.environ.get("ELASTIC_TEST_KILL_EPOCH", "-1"))
+# A file removed after this epoch's commit: it arms a chaos rule that
+# carries it as its ``marker`` (the rule fires once the file is gone).
+MARKER = os.environ.get("ELASTIC_TEST_MARKER", "")
+MARKER_EPOCH = int(os.environ.get("ELASTIC_TEST_MARKER_EPOCH", "-1"))
 
 
 def init():
@@ -84,6 +89,11 @@ def epochs(log):
                           f"size={hvd.size()} pid={os.getpid()}")
             state.epoch += 1
             state.commit()
+            if MARKER and state.epoch == MARKER_EPOCH:
+                try:
+                    os.remove(MARKER)
+                except FileNotFoundError:
+                    pass
             time.sleep(EPOCH_SLEEP)
         return state.epoch
 
