@@ -105,7 +105,20 @@ paths at full width:
   ``pipeline_apply`` over the full TransformerLM (4 stages of 6 blocks,
   ``rounds=4``, 8 microbatches of 1 x 512) against the model's own step:
   3 SGD steps' losses and the first step's gradients.
+- ``[serving]`` (after ``[ha]``): the serving plane on the card. The
+  flagship's parameters packed into ``plan_zero(n=4)`` flat bucket shards
+  load back bit-equal through ``serving.state.load_from_shards``,
+  replicated at serving world 1 and in rows at world 4, and through
+  ``load_for_inference`` of the live ``state_dict()``; a KV store, two
+  ``ServingWorker``s (ToyLM and page pool on the card) and a ``Router``
+  over HTTP serve 32 concurrent requests, every stream equal to the host
+  oracle, admission blocked and a sequence preempted or migrated; a
+  scheduler driven alone makes one host sync a decode step; a drain of
+  worker 0 in mid-flight migrates its 8 long streams to worker 1 with
+  verified page digests and no recompute. ``[sharded]``'s child also
+  holds ``TwoDZero.to_serving`` bit-equal to the params.
 
+Every phase prints ``[time] <phase> <s>`` when it ends.
 For each path it times 10 more steps on the host (enqueue time, step time,
 calls that made the host wait for the device) and profiles one by kernel
 family. Prints one JSON line of per-kernel numbers, the card's name and
@@ -3619,6 +3632,25 @@ def twod_one_card(twod, tree):
         (a - b).abs().max().item()
         for a, b in zip(tree.leaves(p), plain))
     out["buckets"] = len(tz.plan.buckets)
+    # train -> serve: the stepped params, replicated at serving world 1
+    # and in rows at world 2, run by the planner's program in process
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = tz.to_serving(p)
+    torch.cuda.synchronize()
+    out["serve_ms"] = (time.perf_counter() - t0) * 1e3
+    leaves = tree.leaves(p)
+    out["serve_replicated_equal"] = all(
+        torch.equal(a, b) for a, b in zip(tree.leaves(rep), leaves))
+    rows_equal = True
+    for host in range(2):
+        rows = tz.to_serving(p, serving_world=2, serving_rank=host,
+                             layout="rows")
+        for a, b in zip(tree.leaves(rows), leaves):
+            lo, hi = (b.shape[0] * host) // 2, (b.shape[0] * (host + 1)) // 2
+            rows_equal &= bool(torch.equal(a, b[lo:hi]))
+    out["serve_rows_equal"] = rows_equal
+    out["serve_bytes"] = sum(x.numel() * x.element_size() for x in leaves)
     return out
 
 
@@ -3690,6 +3722,10 @@ def sharded_verdict(res):
         bad.append(f"TwoDZero at (1, 1) losses {tw['losses']} against "
                    f"AdamW's {tw['plain_losses']}, parameters max |diff| "
                    f"{tw['max_param_diff']:.3e}")
+    if not (tw["serve_replicated_equal"] and tw["serve_rows_equal"]):
+        bad.append(f"TwoDZero.to_serving is not bit-equal to the params: "
+                   f"replicated {tw['serve_replicated_equal']}, rows at "
+                   f"serving world 2 {tw['serve_rows_equal']}")
     if res["backend"] != "nccl":
         bad.append(f"the group was {res['backend']}, not NCCL")
     return bad
@@ -3738,6 +3774,10 @@ def sharded_phase(fa, flush_buf):
         f"{tw['losses']} against AdamW's {tw['plain_losses']}; parameters "
         f"max |diff| {tw['max_param_diff']:.3e}; step ms "
         f"{[round(t, 2) for t in tw['ms']]}")
+    log(f"[sharded] TwoDZero.to_serving of the stepped params "
+        f"({tw['serve_bytes'] / 2 ** 20:.1f} MiB): replicated bit-equal "
+        f"{tw['serve_replicated_equal']} in {tw['serve_ms']:.1f} ms, rows "
+        f"at serving world 2 bit-equal {tw['serve_rows_equal']}")
     bad = sharded_verdict(res)
     if bad:
         fail("[sharded] " + "; ".join(bad))
@@ -4803,6 +4843,404 @@ def ha_child(out):
     hvd.shutdown()
 
 
+SERVING_REQUESTS = 32
+SERVING_PROMPT = (8, 512)        # prompt tokens, drawn per request
+SERVING_NEW = (16, 256)          # max_new_tokens, drawn per request
+# The knob default of 256 would refuse (413) every prompt over 256 tokens;
+# the budget here takes the longest prompt the draw can give.
+SERVING_BATCH_TOKENS = 512
+SERVING_DRAIN_REQUESTS = 8
+SERVING_DRAIN_NEW = 256
+SERVING_SHARDS = 4               # plan_zero(n=4): the train cohort
+SERVING_ROWS = 4                 # serving world of the rows layout
+
+
+def serving_state_check(models):
+    """Train -> serve state at full width: the flagship's parameters (on
+    the card) packed into ``plan_zero(n=4)`` flat bucket shards, as ZeRO-1
+    lays them out, then assembled back by ``load_from_shards`` replicated
+    at serving world 1 and in rows on each host of serving world 4, and
+    ``load_for_inference`` of the live ``state_dict()``. Every leaf must
+    be bit-equal to the parameter it came from."""
+    from horovod_tpu_torch.ops.zero import plan_zero
+    from horovod_tpu_torch.serving import state
+    from horovod_tpu_torch.utils import tree
+    cfg = models.TransformerConfig(
+        vocab_size=30522, hidden=1024, layers=24, heads=16, max_len=512,
+        causal=True, use_rope=True, attention_impl="flash")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = models.TransformerLM(cfg, device="cuda", generator=gen)
+    names = [n for n, _ in model.named_parameters()]
+    leaves = [p.detach() for p in model.parameters()]
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    plan = plan_zero(leaves, SERVING_SHARDS)
+    shards = {r: [] for r in range(SERVING_SHARDS)}
+    for b, s in zip(plan.buckets, plan.shards):
+        buf = torch.zeros(s.padded, dtype=b.dtype, device="cuda")
+        off = 0
+        for i in b.indices:
+            n = leaves[i].numel()
+            buf[off:off + n] = leaves[i].reshape(-1)
+            off += n
+        for r in range(SERVING_SHARDS):
+            shards[r].append(buf[r * s.shard_len:(r + 1) * s.shard_len])
+    torch.cuda.synchronize()
+    out = {"params": sum(x.numel() for x in leaves), "leaves": len(leaves),
+           "bytes": nbytes, "buckets": len(plan.buckets)}
+
+    def load(world, host, layout):
+        t0 = time.perf_counter()
+        got, report = state.load_from_shards(shards, plan, world, host,
+                                             layout)
+        torch.cuda.synchronize()
+        return got, report, time.perf_counter() - t0
+
+    got, report, secs = load(1, 0, state.REPLICATED)
+    ranges, _ = state.plan_inference_ranges(plan, 1, state.REPLICATED)
+    if not all(torch.equal(g, x) for g, x in zip(got, leaves)):
+        fail("[serving] load_from_shards (replicated) is not bit-equal to "
+             "the parameters")
+    out["replicated"] = {"ranges": sum(len(r) for r in ranges[0]),
+                         "gather_free": report["gather_free_leaves"],
+                         "ms": secs * 1e3, "gbps": nbytes / secs / 1e9}
+    del got
+    ranges, _ = state.plan_inference_ranges(plan, SERVING_ROWS, state.ROWS)
+    rows = []
+    for host in range(SERVING_ROWS):
+        got, report, secs = load(SERVING_ROWS, host, state.ROWS)
+        want = []
+        for x in leaves:
+            lo, hi = state.row_slice(x.shape[0], SERVING_ROWS, host)
+            want.append(x[lo:hi])
+        if not all(torch.equal(g, x) for g, x in zip(got, want)):
+            fail(f"[serving] load_from_shards (rows, host {host}) is not "
+                 "bit-equal to the parameters' row slices")
+        part = sum(g.numel() * g.element_size() for g in got)
+        rows.append({"ranges": sum(len(r) for r in ranges[host]),
+                     "gather_free": report["gather_free_leaves"],
+                     "ms": secs * 1e3, "gbps": part / secs / 1e9})
+        del got
+    out["rows"] = rows
+    sd = model.state_dict()
+    for layout, world in ((state.REPLICATED, 1), (state.ROWS, SERVING_ROWS)):
+        for host in range(world):
+            live = state.load_for_inference(sd, world, host, layout)
+            for name in names:
+                x = sd[name]
+                lo, hi = (state.row_slice(x.shape[0], world, host)
+                          if layout == state.ROWS else (0, x.shape[0]))
+                if not torch.equal(live[name], x[lo:hi]):
+                    fail(f"[serving] load_for_inference ({layout}, host "
+                         f"{host}) {name} is not bit-equal")
+    out["live_leaves"] = len(tree.leaves(live))
+    del model, sd, shards, leaves, live
+    torch.cuda.empty_cache()
+    return out
+
+
+def serving_sync_count(reqs):
+    """A ``Scheduler`` (ToyLM and pool on the card, the knob defaults but
+    the batch budget) driven alone over ``reqs`` with the CUDA sync debug
+    mode on: the host syncs of each decode step, and the streams."""
+    from horovod_tpu_torch.serving import model, scheduler
+    m = model.ToyLM()
+    s = scheduler.Scheduler(m, max_batch_tokens=SERVING_BATCH_TOKENS)
+    results = [s.submit(scheduler.Request(f"s{i}", p, n))
+               for i, (p, n) in enumerate(reqs)]
+    if any(r is None for r in results):
+        fail("[serving] the sync-count scheduler refused a request")
+    per_step = []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        while not all(r.done.is_set() for r in results):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if not s.step():
+                    fail("[serving] the sync-count scheduler stalled")
+            per_step.append(sum("synchroniz" in str(w.message)
+                                for w in caught))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for r, (p, n) in zip(results, reqs):
+        if r.tokens(timeout=1) != m.reference_completion(p, n):
+            fail("[serving] a stream of the scheduler driven alone differs "
+                 "from the oracle")
+    st = s.stats()
+    return {"steps": len(per_step), "min": min(per_step),
+            "max": max(per_step), "mean": sum(per_step) / len(per_step),
+            "preemptions": st["preemptions"],
+            "admission_blocked": st["admission_blocked"]}
+
+
+def _serving_post(port, path, payload, token, timeout=300):
+    import urllib.error
+    import urllib.request
+    from horovod_tpu_torch.runner.http_server import AUTH_HEADER
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+        method="POST")
+    req.add_header(AUTH_HEADER, token)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read() or b"{}")
+    except urllib.error.HTTPError as e:
+        raw = e.read()
+        return e.code, (json.loads(raw) if raw else {})
+
+
+def _serving_burst(port, token, reqs, prefix):
+    """``reqs`` sent at once to ``port``'s ``/v1/generate``, one thread
+    each: ``[(status, body, seconds)]`` in request order."""
+    import threading
+    out = [None] * len(reqs)
+
+    def send(i, prompt, n):
+        t0 = time.perf_counter()
+        status, body = _serving_post(port, "/v1/generate",
+                                     {"id": f"{prefix}{i}", "prompt": prompt,
+                                      "max_new_tokens": n}, token)
+        out[i] = (status, body, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=send, args=(i, p, n))
+               for i, (p, n) in enumerate(reqs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(o is None for o in out):
+        fail(f"[serving] {prefix}: a request did not return")
+    return out
+
+
+def _serving_metric(telemetry, name):
+    """The sum of a family's samples in this process's registry."""
+    fam = telemetry.registry().snapshot()["families"].get(name, {})
+    return sum(x["value"] for x in fam.get("samples", []))
+
+
+def serving_phase(models):
+    """The serving plane on the card (see the module docstring)."""
+    import threading
+    from horovod_tpu_torch.runner.http_server import (KVStoreServer,
+                                                      new_job_token)
+    from horovod_tpu_torch.serving import worker as sworker
+    from horovod_tpu_torch.serving.router import Router
+    from horovod_tpu_torch.telemetry import core as telemetry
+    t0 = time.perf_counter()
+    st = serving_state_check(models)
+    log(f"[serving] state: {st['params']} params in {st['leaves']} leaves "
+        f"({st['bytes'] / 1e9:.3f} GB fp32), plan_zero(n={SERVING_SHARDS}) "
+        f"{st['buckets']} buckets of 16 MiB; load_from_shards replicated "
+        f"(world 1): {st['replicated']['ranges']} ranges, "
+        f"{st['replicated']['gather_free']}/{st['leaves']} leaves "
+        f"gather-free, {st['replicated']['ms']:.1f} ms, "
+        f"{st['replicated']['gbps']:.1f} GB/s; rows (world {SERVING_ROWS}) "
+        + "; ".join(f"host {h}: {r['ranges']} ranges, {r['gather_free']}/"
+                    f"{st['leaves']} gather-free, {r['ms']:.1f} ms, "
+                    f"{r['gbps']:.1f} GB/s" for h, r in enumerate(st["rows"]))
+        + f"; bit-equal; load_for_inference of the state_dict bit-equal "
+        f"({st['live_leaves']} leaves, views)")
+    log(f"[time] serving.state {time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVING_PROMPT[0], SERVING_PROMPT[1] + 1,
+                        SERVING_REQUESTS)
+    news = rng.integers(SERVING_NEW[0], SERVING_NEW[1] + 1,
+                        SERVING_REQUESTS)
+    reqs = [(rng.integers(0, 97, int(n)).tolist(), int(m))
+            for n, m in zip(lens, news)]
+    t1 = time.perf_counter()
+    sync = serving_sync_count(reqs[:SERVING_REQUESTS // 2])
+    if sync["min"] != 1 or sync["max"] != 1:
+        fail(f"[serving] host syncs per decode step {sync['min']}.."
+             f"{sync['max']}, expected 1")
+    log(f"[serving] one scheduler alone: {sync['steps']} decode steps, "
+        f"host syncs per step min {sync['min']} max {sync['max']}, "
+        f"{sync['preemptions']} preemptions, {sync['admission_blocked']} "
+        f"admissions blocked, streams equal to the oracle "
+        f"({time.perf_counter() - t1:.1f} s)")
+
+    old_metrics = os.environ.get("HOROVOD_TPU_METRICS")
+    os.environ["HOROVOD_TPU_METRICS"] = "1"
+    telemetry.reset()
+    token = new_job_token()
+    kv = KVStoreServer(job_token=token, addr="127.0.0.1")
+    kv_port = kv.start()
+    workers, ports, router = [], [], None
+    loop_syncs = {}
+    shown = warnings.showwarning
+
+    def count_syncs(message, *args, **kw):
+        name = threading.current_thread().name
+        if "synchroniz" in str(message) and name.startswith("hvd-serving"):
+            loop_syncs[name] = loop_syncs.get(name, 0) + 1
+            return
+        shown(message, *args, **kw)
+
+    try:
+        for wid in range(2):
+            w = sworker.ServingWorker(cohort="c0", wid=wid,
+                                      max_batch_tokens=SERVING_BATCH_TOKENS)
+            workers.append(w)
+            ports.append(w.serve_http(addr="127.0.0.1", token=token))
+            w.register("127.0.0.1", kv_port, token,
+                       advertise=f"127.0.0.1:{ports[-1]}")
+        knobs = sworker.knob_defaults()
+        router = Router(kv=("127.0.0.1", kv_port, token))
+        if router.refresh_from_kv(["c0"]) != {"c0": 2}:
+            fail("[serving] the router did not find both workers")
+        rport = router.serve_http(addr="127.0.0.1", token=token)
+        with warnings.catch_warnings():
+            warnings.filterwarnings("always", message=".*synchroniz.*")
+            warnings.showwarning = count_syncs
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                # The burst arrives at once: the workers' loops start when
+                # all of it is queued, so the pool is pressed every run.
+                out = {}
+                sender = threading.Thread(target=lambda: out.update(
+                    res=_serving_burst(rport, token, reqs, "burst")))
+                sender.start()
+                deadline = time.monotonic() + 120
+                while sum(w.scheduler.stats()["queue_depth"]
+                          for w in workers) < SERVING_REQUESTS:
+                    if time.monotonic() > deadline:
+                        fail("[serving] the burst never all queued")
+                    time.sleep(0.002)
+                t2 = time.perf_counter()
+                for w in workers:
+                    w.start()
+                sender.join(timeout=600)
+                wall = time.perf_counter() - t2
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        res = out.get("res")
+        if res is None:
+            fail("[serving] the burst did not return")
+        bad = [i for i, (status, body, _) in enumerate(res)
+               if status != 200 or body.get("tokens")
+               != workers[0].model.reference_completion(*reqs[i])]
+        if bad:
+            fail(f"[serving] streams {bad} differ from the oracle: "
+                 f"{[res[i][:2] for i in bad][:2]}")
+        stats = [w.scheduler.stats() for w in workers]
+        steps = sum(x["steps"] for x in stats)
+        exports = sum(x["migrated_out"] + x["migrate_failed"]
+                      for x in stats)
+        moved = sum(x["migrated_out"] for x in stats)
+        preempted = sum(x["preemptions"] for x in stats)
+        blocked = sum(x["admission_blocked"] for x in stats)
+        if blocked < 1 or preempted + moved < 1:
+            fail(f"[serving] the burst blocked admission {blocked} times "
+                 f"and preempted or migrated {preempted + moved}: the "
+                 "pool was never pressed")
+        lat = sorted(t for _, _, t in res)
+        tokens = sum(len(b["tokens"]) for _, b, _ in res)
+        per_step = (sum(loop_syncs.values()) - exports) / steps
+        log(f"[serving] HTTP: router + 2 workers (pool {knobs['num_pages']} "
+            f"x {knobs['page_size']} slots, queue {knobs['queue_limit']}, "
+            f"batch budget {SERVING_BATCH_TOKENS}), {SERVING_REQUESTS} "
+            f"requests queued, then the loops started (prompt "
+            f"{int(lens.min())}-{int(lens.max())}, new "
+            f"{int(news.min())}-{int(news.max())}; "
+            f"{int((lens + news).sum())} slots asked of "
+            f"{2 * knobs['num_pages'] * knobs['page_size']}): all streams "
+            f"equal the oracle; {tokens} tokens in {wall:.2f} s = "
+            f"{tokens / wall:.1f} tokens/s; latency p50 "
+            f"{lat[len(lat) // 2]:.3f} s p99 "
+            f"{lat[min(len(lat) - 1, int(0.99 * len(lat)))]:.3f} s; "
+            f"{steps} decode steps; admission blocked {blocked}; "
+            f"preemptions {preempted}; migrations {moved} (+"
+            f"{exports - moved} refused); loop-thread host syncs "
+            f"{sum(loop_syncs.values())} = {steps} steps x {per_step:.3f} "
+            f"+ {exports} page exports")
+        if per_step != 1.0:
+            fail(f"[serving] {per_step:.3f} host syncs per decode step in "
+                 "the workers' loops, expected 1")
+        log(f"[time] serving.http {time.perf_counter() - t2:.1f} s")
+
+        # Drain with live migration: 8 long streams on worker 0, drained
+        # in mid-flight; a direct client follows the handoff.
+        t3 = time.perf_counter()
+        before = [w.scheduler.stats() for w in workers]
+        pages_before = _serving_metric(
+            telemetry, "hvd_serving_migrated_pages_total")
+        dreqs = [(rng.integers(0, 97, int(n)).tolist(), SERVING_DRAIN_NEW)
+                 for n in rng.integers(8, 129, SERVING_DRAIN_REQUESTS)]
+        out = {}
+        sender = threading.Thread(target=lambda: out.update(
+            res=_serving_burst(ports[0], token, dreqs, "drain")))
+        sender.start()
+        deadline = time.monotonic() + 120
+        while True:
+            s0 = workers[0].scheduler.stats()
+            if s0["running"] == SERVING_DRAIN_REQUESTS and \
+                    s0["tokens_out"] - before[0]["tokens_out"] >= \
+                    4 * SERVING_DRAIN_REQUESTS:
+                break
+            if time.monotonic() > deadline:
+                fail(f"[serving] the drain's streams never all ran: {s0}")
+            time.sleep(0.002)
+        drained_at = s0["tokens_out"] - before[0]["tokens_out"]
+        status, body = _serving_post(ports[0], "/v1/serving/drain", {},
+                                     token)
+        if status != 200 or not body.get("draining"):
+            fail(f"[serving] drain answered {status} {body}")
+        sender.join(timeout=600)
+        res = out.get("res")
+        if res is None:
+            fail("[serving] the drained streams did not return")
+        bad = [i for i, (status, body, _) in enumerate(res)
+               if status != 200 or body.get("tokens")
+               != workers[0].model.reference_completion(*dreqs[i])
+               or body.get("worker") != "c0.1"]
+        if bad:
+            fail(f"[serving] drained streams {bad} are not worker 1's "
+                 f"oracle streams: {[res[i][:2] for i in bad][:2]}")
+        after = [w.scheduler.stats() for w in workers]
+        d = {k: after[0][k] - before[0][k] for k in
+             ("migrated_out", "migrate_failed", "preemptions")}
+        d["migrated_in"] = after[1]["migrated_in"] - before[1]["migrated_in"]
+        d["preemptions1"] = after[1]["preemptions"] - before[1]["preemptions"]
+        pages = _serving_metric(
+            telemetry, "hvd_serving_migrated_pages_total") - pages_before
+        if d["migrated_out"] != SERVING_DRAIN_REQUESTS or \
+                d["migrated_in"] != d["migrated_out"] or \
+                d["migrate_failed"] or d["preemptions"] or \
+                d["preemptions1"] or pages < 1:
+            fail(f"[serving] the drain's migration counters: {d}, pages "
+                 f"{pages}")
+        lat = sorted(t for _, _, t in res)
+        log(f"[serving] drain: {SERVING_DRAIN_REQUESTS} streams of "
+            f"{SERVING_DRAIN_NEW} tokens on worker 0 drained after "
+            f"{drained_at} tokens; {d['migrated_out']} migrated to worker 1 "
+            f"({d['migrated_in']} imported with verified digests, "
+            f"{pages:.0f} pages), 0 refused, 0 recomputed; every stream "
+            f"equals the oracle, finished on c0.1; latency p50 "
+            f"{lat[len(lat) // 2]:.3f} s max {lat[-1]:.3f} s")
+        log(f"[time] serving.drain {time.perf_counter() - t3:.1f} s")
+    finally:
+        if router is not None:
+            router.stop_http()
+        for w in workers:
+            w.stop()
+        kv.stop()
+        if old_metrics is None:
+            os.environ.pop("HOROVOD_TPU_METRICS", None)
+        else:
+            os.environ["HOROVOD_TPU_METRICS"] = old_metrics
+        telemetry.reset()
+        torch.cuda.empty_cache()
+
+
+def phase_done(name, t):
+    """Prints ``[time] <name> <s>``: the wall seconds since ``t``; returns
+    the time now."""
+    now = time.perf_counter()
+    log(f"[time] {name} {now - t:.1f} s")
+    return now
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -4838,54 +5276,68 @@ def main():
         if text.strip():
             log(f"[build] {unit}:\n{text.strip()[-4000:]}")
 
+    t = phase_done("build", t0)
     attributes_phase(fa)
+    t = phase_done("attrs", t)
     results = kernel_phase(fa)
+    t = phase_done("kernels", t)
     hvd.init()
     model_check(hvd, models, torch)
+    t = phase_done("model-check", t)
     launches, train_losses, train_ms, train_host = train_phase(
         hvd, fa, models, torch)
     launches = {n: c for n, c in launches.items()
                 if n in ("fwd", "bwd_dkv", "bwd_dq")}
     torch.cuda.empty_cache()
+    t = phase_done("train", t)
     bert_check(hvd_torch, fa)
     bert_launches = bert_phase(hvd_torch, fa)
     launches.update({n: c for n, c in bert_launches.items()
                      if n.endswith(("_mask", "_philox"))})
     torch.cuda.empty_cache()
+    t = phase_done("bert", t)
     api_phase(hvd_torch)
     resnet_check(models)
     resnet_losses, resnet_ms, resnet_host = resnet_phase(hvd_torch, models,
                                                          train)
     torch.cuda.empty_cache()
+    t = phase_done("resnet", t)
     native_launches, native_ms, native_res = native_phase(
         train_losses, (train_ms, train_host), resnet_losses,
         (resnet_ms, resnet_host))
     log("[launches] [native] " + ", ".join(
         f"{n}={c}" for n, c in native_launches.items()))
+    t = phase_done("native", t)
     elastic_launches = elastic_phase(train_losses, train_ms, native_ms)
     log("[launches] [elastic] " + ", ".join(
         f"{n}={c}" for n, c in elastic_launches.items()))
+    t = phase_done("elastic", t)
     compress_launches = compress_phase(native_res, resnet_losses)
     log("[launches] [compress] " + ", ".join(
         f"{n}={c}" for n, c in compress_launches.items()))
+    t = phase_done("compress", t)
     zero_launches, zero_res = zero_phase(native_res)
     log("[launches] [zero] " + ", ".join(
         f"{n}={c}" for n, c in zero_launches.items()))
+    t = phase_done("zero", t)
     ckpt_launches = ckpt_phase(zero_res)
     log("[launches] [ckpt] " + ", ".join(
         f"{n}={c}" for n, c in ckpt_launches.items()))
+    t = phase_done("ckpt", t)
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     par_launches, par_rows = parallel_phase(fa, flush_buf)
     log("[launches] [parallel] " + ", ".join(
         f"{n}={c}" for n, c in par_launches.items()))
     launches.update(par_launches)
     results.update(par_rows)
+    t = phase_done("parallel", t)
     shard_launches, shard_rows = sharded_phase(fa, flush_buf)
     log("[launches] [sharded] " + ", ".join(
         f"{n}={c}" for n, c in shard_launches.items()))
     for name, by_tp in shard_rows.items():
         results[name].update(by_tp)
     torch.cuda.empty_cache()
+    t = phase_done("sharded", t)
     bert_rows, bertmodel_launches = bertmodel_phase(hvd, hvd_torch, fa,
                                                     models, flush_buf)
     del flush_buf
@@ -4894,18 +5346,26 @@ def main():
     for name, row in bert_rows.items():
         results[name].update(row)
     torch.cuda.empty_cache()
+    t = phase_done("bertmodel", t)
     trace_launches = trace_phase()
     log("[launches] [trace] " + ", ".join(
         f"{n}={c}" for n, c in trace_launches.items()))
+    t = phase_done("trace", t)
     at_launches = autotune_phase(native_res)
     log("[launches] [autotune] " + ", ".join(
         f"{n}={c}" for n, c in at_launches.items()))
+    t = phase_done("autotune", t)
     chaos_launches, control_losses = chaos_phase(native_res)
     log("[launches] [chaos] " + ", ".join(
         f"{n}={c}" for n, c in chaos_launches.items()))
+    t = phase_done("chaos", t)
     ha_launches = ha_phase(control_losses)
     log("[launches] [ha] " + ", ".join(
         f"{n}={c}" for n, c in ha_launches.items()))
+    t = phase_done("ha", t)
+    serving_phase(models)
+    t = phase_done("serving", t)
+    phase_done("total", t0)
     log("[launches] " + ", ".join(f"{n}={c}" for n, c in launches.items()))
     if set(launches) != set(KERNELS) or not all(launches.values()):
         fail(f"a kernel was not launched on its path: {launches}")

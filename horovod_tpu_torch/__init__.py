@@ -39,3 +39,14 @@ from .process_sets import (ProcessSet, add_process_set, global_process_set,
 from .train import (DistributedOptimizer, make_train_step,
                     make_zero_train_step)
 from .version import __version__
+
+
+def __getattr__(name):
+    # horovod_tpu_torch.run(func, num_proc=N): the reference's programmatic
+    # launcher (horovod/runner/__init__.py:92 ``horovod.run``). Lazy, so
+    # that importing the package never imports the runner.
+    if name == "run":
+        from .runner import run
+        return run
+    raise AttributeError(
+        f"module {__name__!r} has no attribute {name!r}")

@@ -26,8 +26,10 @@ sharded update is bit-identical to the same-mesh data-parallel oracle
 (all-reduce + a replicated inner optimizer), because the reduce-scatter
 sums each element as the all-reduce does (any order at dp ≤ 2) and the
 inner optimizer acts per element. Gradients ride fp32; wire codecs do not
-compose with the 2D path yet. ``to_serving`` needs the serving plane
-(ROADMAP item 14) and raises.
+compose with the 2D path yet. ``to_serving`` moves the tensor-local
+params to the serving plane's layout with one redistribution program: run
+in this process on a (1, 1) mesh, over ``resharding.execute_group`` on a
+larger one, where every rank holds only its own shard.
 """
 
 import torch
@@ -35,16 +37,12 @@ import torch.distributed as dist
 
 from ..ops import reduce_ops
 from ..ops.bucketing import _pack, _unpack
-from ..ops.zero import DEFAULT_ZERO_BUCKET_BYTES, plan_zero
+from ..ops.zero import DEFAULT_ZERO_BUCKET_BYTES, dtype_name, plan_zero
 from ..utils import tree as _tree
 from ..utils.logging_util import get_logger
 from .axis import _gather_fn, _scatter_fn
 from .sharding import (P, _names, local_shape, make_param_specs,
                        mesh_shape, shard_params, transformer_param_rules)
-
-SERVING_ERROR = (
-    "twod.to_serving: the train->serve transform needs the serving plane "
-    "(serving/state.py), which is not ported yet (ROADMAP item 14)")
 
 
 def make_mesh_2d(dp, tp, device_type=None):
@@ -142,6 +140,7 @@ class TwoDZero:
         self.plan = None
         self.param_specs = None
         self.treedef = None
+        self._global_meta = None
         self._slots = None
 
     # -- mesh --------------------------------------------------------------
@@ -179,6 +178,9 @@ class TwoDZero:
                      for leaf, spec in zip(leaves, self._spec_leaves())]
             self.plan = plan_zero(local, self.dp, self.bucket_bytes)
             self.treedef = _tree.structure(params)
+            self._global_meta = [(tuple(int(d) for d in leaf.shape),
+                                  dtype_name(_torch_dtype(leaf.dtype)))
+                                 for leaf in leaves]
             dtypes = {b.dtype for b in self.plan.buckets}
             self._slots = {dt: _elementwise_probe(self.inner, dt)
                            for dt in dtypes}
@@ -335,11 +337,71 @@ class TwoDZero:
         return self._update_body(grads, state, params)
 
     # -- train -> serve ----------------------------------------------------
-    def to_serving(self, params, serving_world=1, serving_rank=0,
-                   layout="replicated"):
-        """The planner-emitted train→serve transform: needs
-        ``serving/state.py`` (ROADMAP item 14)."""
-        raise NotImplementedError(SERVING_ERROR)
+    @torch.no_grad()
+    def to_serving(self, params, serving_world=1, serving_rank=None,
+                   layout="replicated", group=None):
+        """The planner-emitted train→serve transform: this rank's
+        tensor-local ``params`` (what ``shard`` and the step return) move
+        to the serving plane's layout (``serving.state.REPLICATED`` /
+        ``ROWS`` over ``serving_world`` hosts) through one redistribution
+        program — never a gather of the whole tree to the host. Leaves
+        stay on the params' device. Needs the plan (``shard`` or
+        ``ensure_plan`` of the global tree).
+
+        On a (1, 1) mesh the program runs in this process and returns
+        serving host ``serving_rank``'s tree (default 0). On a larger
+        mesh every rank holds only its own shard, so every rank of
+        ``group`` (default: the world; the mesh's ranks first) calls
+        together and the program runs through
+        ``resharding.execute_group``: group rank r receives serving host
+        r's tree (None past ``serving_world``), and ``serving_rank``, if
+        given, must be this rank's."""
+        from .. import resharding
+        from ..resharding.spec import torch_dtype
+        from ..serving.state import leaf_shape, serving_spec
+        if self.plan is None:
+            raise ValueError("TwoDZero.to_serving: build the plan from the "
+                             "global tree first (ensure_plan or shard)")
+        serving_world = int(serving_world)
+        meta = self._global_meta
+        src = resharding.Spec({self.dp_axis: self.dp,
+                               self.tp_axis: self.tp},
+                              self.tensor_layouts())
+        dst = serving_spec(len(meta), serving_world, layout)
+        program = resharding.plan_redistribution(src, dst, meta)
+        program.verify_consistency()
+        local = _tree.leaves(params) if params is not None else []
+        device = local[0].device if local else None
+
+        def read_window(rank, buf, start, length):
+            _, i = buf
+            return local[i].reshape(-1)[start:start + length]
+
+        if self.dp * self.tp == 1:
+            rank = 0 if serving_rank is None else int(serving_rank)
+            results, _ = resharding.execute_host(
+                program, read_window, ranks=[rank], device=device)
+            bufs = results[rank]
+        else:
+            group = group if group is not None else dist.group.WORLD
+            rank = dist.get_rank(group)
+            if serving_rank is not None and int(serving_rank) != rank:
+                raise ValueError(
+                    f"to_serving: group rank {rank} receives serving host "
+                    f"{rank}'s leaves, not {serving_rank}'s")
+            bufs, _ = resharding.execute_group(program, read_window,
+                                               group=group, device=device)
+            if rank >= serving_world:
+                return None
+        leaves = []
+        for i, (shape, dtype) in enumerate(meta):
+            flat = bufs.get(("leaf", i))
+            if flat is None:
+                flat = torch.zeros(0, dtype=torch_dtype(dtype),
+                                   device=device)
+            leaves.append(flat.reshape(
+                leaf_shape(shape, layout, serving_world, rank)))
+        return _tree.unflatten(self.treedef, leaves)
 
 
 def _torch_dtype(dtype):

@@ -699,7 +699,17 @@ class ElasticDriver:
                 # a preemption during wind-down must not read as a crash.
                 self._count_preempt_exit(wid)
                 changed = True
-            elif rc == RESTART_EXIT_CODE and not self.completing:
+            elif rc == RESTART_EXIT_CODE and self.completing:
+                # An exit-restart while the job winds down: the worker
+                # asked for a fresh process the finished job no longer
+                # needs. A neutral exit: no fail count, no blacklist
+                # pressure on a healthy host, no respawn. (The JAX
+                # driver sends it to FAILED, ROADMAP queue C, C5.)
+                w.state = SUCCEEDED
+                self.log.info(
+                    "elastic driver: worker %s exited for a reset during "
+                    "wind-down; not respawned", wid)
+            elif rc == RESTART_EXIT_CODE:
                 # Exit-restart reset (elastic.py): the worker persisted its
                 # commit and asked to be respawned fresh. Not a failure,
                 # and no membership change beyond what triggered the

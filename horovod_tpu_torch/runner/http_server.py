@@ -23,7 +23,12 @@ store's is refused 409 with both terms (the split-brain fence), a newer
 one is adopted; durable-scope writes go to the journal under the store
 lock.
 
-Not ported: the serving routes (``/v1/...``, ROADMAP queue A, item 14).
+The serving plane rides the same server: attaching a ``serving_router``
+or ``serving_worker`` (``attach_serving``) enables the token-gated
+``POST /v1/generate``, ``GET /v1/serving/stats`` and ``POST
+/v1/serving/drain`` routes, with the JAX package's status codes and bodies
+(a 429 carries ``Retry-After``). Workers additionally answer ``POST
+/v1/serving/migrate_in`` (KV-cache live migration).
 """
 
 import secrets
@@ -69,6 +74,12 @@ class _KVStoreHandler(BaseHTTPRequestHandler):
             return False
         return True
 
+    def _serving_target(self):
+        """The attached serving endpoint: the router when one is
+        attached, else the worker, else None (routes answer 404)."""
+        return (getattr(self.server, "serving_router", None)
+                or getattr(self.server, "serving_worker", None))
+
     def _ha_headers(self):
         """Advertise the store's term + primary hint on every reply."""
         self.send_header(TERM_HEADER, str(self.server.term))
@@ -111,14 +122,58 @@ class _KVStoreHandler(BaseHTTPRequestHandler):
         body = _json.dumps(obj).encode()
         self.send_response(code)
         self._ha_headers()
+        if code == 429:
+            # Backpressure contract: clients are told when to come back
+            # instead of hammering the queue limit.
+            self.send_header(
+                "Retry-After",
+                str(obj.get("retry_after", 1.0) if isinstance(obj, dict)
+                    else 1.0))
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
 
+    def do_POST(self):  # noqa: N802
+        """Serving-plane routes: /v1/generate, /v1/serving/drain,
+        /v1/serving/migrate_in (worker targets only — migration is
+        host-to-host, the router never holds KV pages)."""
+        if not self._authorized():
+            return
+        import json as _json
+        target = self._serving_target()
+        if self.path not in ("/v1/generate", "/v1/serving/drain",
+                             "/v1/serving/migrate_in") \
+                or target is None:
+            return self._reply(404, b"")
+        length = int(self.headers.get("Content-Length", 0))
+        raw = self.rfile.read(length)
+        try:
+            payload = _json.loads(raw) if raw else {}
+        except ValueError:
+            return self._reply_json(400, {"error": "bad JSON body"})
+        if not isinstance(payload, dict):
+            return self._reply_json(
+                400, {"error": "bad JSON body: must be an object"})
+        if self.path == "/v1/generate":
+            code, body = target.handle_generate(payload)
+        elif self.path == "/v1/serving/migrate_in":
+            worker = getattr(self.server, "serving_worker", None)
+            if worker is None:
+                return self._reply(404, b"")
+            code, body = worker.handle_migrate_in(payload)
+        else:
+            code, body = target.handle_drain(payload)
+        self._reply_json(code, body)
+
     def do_GET(self):  # noqa: N802 (http.server API)
         if not self._authorized():
             return
+        if self.path == "/v1/serving/stats":
+            target = self._serving_target()
+            if target is None:
+                return self._reply(404, b"")
+            return self._reply_json(200, target.stats())
         if self.path.split("?")[0] == "/journal":
             return self._serve_journal()
         parts = [p for p in self.path.split("/") if p]
@@ -274,6 +329,8 @@ class KVStoreServer:
         self._term = 0
         self.journal = None
         self.primary_hint = None
+        self.serving_worker = None
+        self.serving_router = None
 
     @property
     def port(self):
@@ -302,6 +359,17 @@ class KVStoreServer:
         self.journal = journal
         if self._httpd is not None:
             self._httpd.journal = journal
+
+    def attach_serving(self, worker=None, router=None):
+        """Attach a serving worker/router; enables the /v1 routes
+        (callable before or after start())."""
+        if worker is not None:
+            self.serving_worker = worker
+        if router is not None:
+            self.serving_router = router
+        if self._httpd is not None:
+            self._httpd.serving_worker = self.serving_worker
+            self._httpd.serving_router = self.serving_router
 
     def pause_for(self, seconds):
         """Black-hole every request for ``seconds`` — the chaos
@@ -338,6 +406,8 @@ class KVStoreServer:
         self._httpd.journal = self.journal
         self._httpd.primary_hint = self.primary_hint
         self._httpd.paused_until = 0.0
+        self._httpd.serving_worker = self.serving_worker
+        self._httpd.serving_router = self.serving_router
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, daemon=True,
             name="hvdtpu-kvstore")

@@ -357,6 +357,48 @@ SPARSE_EMA = register(
     "History weight of the per-name density EMA the auto policy "
     "smooths path decisions with (0 = instantaneous)")
 
+# -- serving plane (serving/) ---------------------------------------------
+SERVING_MAX_BATCH_TOKENS = register(
+    "SERVING_MAX_BATCH_TOKENS", "256",
+    "Per-step scheduler budget: prefill tokens admitted plus one slot "
+    "per running sequence may not exceed this")
+SERVING_KV_PAGE_SIZE = register(
+    "SERVING_KV_PAGE_SIZE", "16",
+    "Token slots per KV-cache page")
+SERVING_KV_PAGES = register(
+    "SERVING_KV_PAGES", "256",
+    "KV-cache pages in the per-host pool; admission keeps 1/16 of "
+    "them free (the watermark reserve)")
+SERVING_QUEUE_LIMIT = register(
+    "SERVING_QUEUE_LIMIT", "64",
+    "Bound of the per-host admission queue; past it submissions are "
+    "rejected 429 + Retry-After (backpressure, never buffering)")
+SERVING_SCALE_UP_DEPTH = register(
+    "SERVING_SCALE_UP_DEPTH", "32",
+    "Autoscaler: total cohort pressure (queued + running) that, "
+    "sustained, triggers a serving scale-up")
+SERVING_DRAIN_TIMEOUT = register(
+    "SERVING_DRAIN_TIMEOUT", "30",
+    "Seconds a draining cohort may take to finish in-flight "
+    "sequences before scale-down proceeds anyway")
+SERVING_SLO_P99 = register(
+    "SERVING_SLO_P99", "0",
+    "Serving p99 end-to-end latency SLO in seconds; a window-smoothed "
+    "breach counts as scale-up pressure even with a shallow queue "
+    "(0 = latency trigger off, depth-only autoscaling)")
+SERVING_MIGRATE_RETRIES = register(
+    "SERVING_MIGRATE_RETRIES", "3",
+    "Retry attempts per KV-cache migration chunk POST before the "
+    "transfer falls back to recompute")
+SERVING_MIGRATE_DEADLINE = register(
+    "SERVING_MIGRATE_DEADLINE", "5",
+    "Seconds each migration chunk may spend retrying before the "
+    "transfer falls back to recompute")
+SERVING_MIGRATE_MAX_BYTES = register(
+    "SERVING_MIGRATE_MAX_BYTES", "4194304",
+    "Upper bound on one migrate_in POST body; a sequence's pages are "
+    "chunked to stay under it (bounds target staging memory too)")
+
 # -- kernels ----------------------------------------------------------------
 BRIDGE_FLASH = register(
     "BRIDGE_FLASH", "auto",

@@ -1,14 +1,15 @@
-"""Run the `[autotune]`, `[chaos]` and `[ha]` phases of ``chip_smoke.py``
-alone on one GPU, without the rest of the script:
+"""Run phases of ``chip_smoke.py`` alone on one GPU, without the rest of
+the script:
 
-    python3 scripts/torch_port_smoke_phases.py [autotune] [chaos] [ha]
+    python3 scripts/torch_port_smoke_phases.py [autotune] [chaos] [ha] [serving]
 
-Builds the kernels and the native core, trains the flagship TransformerLM
-5 steps on the single-process plane (the reference losses the phases hold
-theirs to; `chip_smoke.py` passes `[native]`'s), then runs the phases
-named (all three by default; `[ha]` needs `[chaos]`'s uninjected control
-and runs it too). Prints the card's name and power limit and
-``PHASES OK`` with the seconds taken.
+Builds the kernels and the native core, then runs the phases named (all
+four by default). ``[autotune]``, ``[chaos]`` and ``[ha]`` first train the
+flagship TransformerLM 5 steps on the single-process plane (the reference
+losses the phases hold theirs to; ``chip_smoke.py`` passes ``[native]``'s),
+and ``[ha]`` needs ``[chaos]``'s uninjected control and runs it too.
+``[serving]`` needs neither. Prints ``[time] <phase> <s>`` after each, the
+card's name and power limit and ``PHASES OK`` with the seconds taken.
 """
 
 import os
@@ -24,37 +25,45 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 
+PHASES = ("autotune", "chaos", "ha", "serving")
+
 
 def main(which):
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import _build, models
     if not torch.cuda.is_available():
         cs.fail("needs a CUDA device")
+    unknown = set(which) - set(PHASES)
+    if unknown:
+        cs.fail(f"unknown phases {sorted(unknown)}; choose from {PHASES}")
     t0 = time.perf_counter()
     _build.build_core()
     _build.build(["flash_attention"])
     cs.log(f"[build] {time.perf_counter() - t0:.1f} s; "
            f"{torch.cuda.get_device_name(0)}")
     hvd.init()
-    _, model, step, x, y = cs.transformer_setup(hvd, models)
-    losses = [step(model, (x, y)).item() for _ in range(cs.TRAIN_STEPS)]
-    cs.log(f"[train] losses {losses}")
-    del model, step
-    torch.cuda.empty_cache()
-    ref = {"transformer_losses": losses}
+    ref = {}
+    if {"autotune", "chaos", "ha"} & set(which):
+        _, model, step, x, y = cs.transformer_setup(hvd, models)
+        losses = [step(model, (x, y)).item() for _ in range(cs.TRAIN_STEPS)]
+        cs.log(f"[train] losses {losses}")
+        del model, step
+        torch.cuda.empty_cache()
+        ref = {"transformer_losses": losses}
+    t = time.perf_counter()
     if "autotune" in which:
-        t = time.perf_counter()
         cs.log(f"[launches] [autotune] {cs.autotune_phase(ref)}")
-        cs.log(f"[time] autotune {time.perf_counter() - t:.1f} s")
+        t = cs.phase_done("autotune", t)
     if "chaos" in which or "ha" in which:
-        t = time.perf_counter()
         launches, control = cs.chaos_phase(ref)
         cs.log(f"[launches] [chaos] {launches}")
-        cs.log(f"[time] chaos {time.perf_counter() - t:.1f} s")
+        t = cs.phase_done("chaos", t)
     if "ha" in which:
-        t = time.perf_counter()
         cs.log(f"[launches] [ha] {cs.ha_phase(control)}")
-        cs.log(f"[time] ha {time.perf_counter() - t:.1f} s")
+        t = cs.phase_done("ha", t)
+    if "serving" in which:
+        cs.serving_phase(models)
+        t = cs.phase_done("serving", t)
     hvd.shutdown()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -63,4 +72,4 @@ def main(which):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["autotune", "chaos", "ha"])
+    main(sys.argv[1:] or list(PHASES))

@@ -288,6 +288,34 @@ def test_driver_exit_codes_and_rereqs_follow_the_jax_driver(monkeypatch):
         _driver_trace(jdrv, jjob, monkeypatch)
 
 
+def test_exit_restart_during_wind_down_is_neutral(monkeypatch):
+    # C5: once a worker has finished, an exit-restart (79) of another is
+    # neither a failure nor a respawn; the JAX driver counts it against
+    # the host and blacklists a healthy one after host_fail_limit exits.
+    from horovod_tpu_torch.exceptions import RESTART_EXIT_CODE
+    es = tdrv.ElasticSettings(tjob.Settings(num_proc=3, hosts="a:3"),
+                              min_np=1)
+    es.host_fail_limit = 2
+    driver = tdrv.ElasticDriver(es, ["true"])
+    try:
+        monkeypatch.setattr(driver, "_spawn", _fake_spawn(driver, tdrv))
+        driver.version = 0
+        driver._reconcile(driver._discover_targets())
+        driver._publish()
+        first, *rest = list(driver.rank_order)
+        driver.workers[first].proc.poll = lambda: 0
+        assert not driver._sweep_exits()
+        assert driver.completing
+        for wid in rest:
+            driver.workers[wid].proc.poll = lambda: RESTART_EXIT_CODE
+            assert not driver._sweep_exits()
+        assert driver.fail_counts == {}
+        assert driver.blacklist == set()
+        assert driver.workers == {}
+    finally:
+        driver.server.stop()
+
+
 # -- the launcher's command line ----------------------------------------------
 
 @pytest.mark.parametrize("flag", [["--journal-dir", "j"],

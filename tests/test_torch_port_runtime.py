@@ -40,13 +40,19 @@ def test_import_pulls_in_no_jax_and_no_horovod_tpu():
     assert out.returncode == 0, out.stderr
     bad, imported = out.stdout.strip().splitlines()
     assert bad == "[]"
-    # The walk reached every module of the telemetry and tracing planes,
-    # the models' remat and the BERT model.
+    # The walk reached every module of the telemetry, tracing and serving
+    # planes, the models' remat and the BERT model, the programmatic and
+    # cluster launch and the migration spec.
     for mod in ("telemetry.core", "telemetry.exposition",
                 "telemetry.aggregate", "telemetry.cli", "telemetry.spans",
                 "tracing", "tracing.recorder", "tracing.clock",
                 "tracing.merge", "tracing.analyze", "tracing.cli",
-                "models._remat", "models.transformer", "models.resnet"):
+                "models._remat", "models.transformer", "models.resnet",
+                "serving", "serving.kv_cache", "serving.model",
+                "serving.scheduler", "serving.migration", "serving.router",
+                "serving.worker", "serving.state", "serving.autoscale",
+                "serving.metrics", "serving.cli", "runner.cluster",
+                "runner.task_exec", "analysis.protocol.migration_spec"):
         assert f"'horovod_tpu_torch.{mod}'" in imported, mod
 
 
@@ -203,7 +209,12 @@ def test_knobs_and_reduce_ops_match_the_jax_package():
         "AUTOTUNE_ZERO_BUCKET_CANDIDATES_MIB", "COSTMODEL",
         "COSTMODEL_TABLE", "CHAOS", "CHAOS_LOG", "DRIVER_JOURNAL",
         "DRIVER_JOURNAL_SNAPSHOT_EVERY", "DRIVER_STANDBY_ADDRS",
-        "DRIVER_LEASE_INTERVAL", "DRIVER_LEASE_TIMEOUT", "DRIVER_PORT"}
+        "DRIVER_LEASE_INTERVAL", "DRIVER_LEASE_TIMEOUT", "DRIVER_PORT",
+        "SERVING_MAX_BATCH_TOKENS", "SERVING_KV_PAGE_SIZE",
+        "SERVING_KV_PAGES", "SERVING_QUEUE_LIMIT", "SERVING_SCALE_UP_DEPTH",
+        "SERVING_DRAIN_TIMEOUT", "SERVING_SLO_P99",
+        "SERVING_MIGRATE_RETRIES", "SERVING_MIGRATE_DEADLINE",
+        "SERVING_MIGRATE_MAX_BYTES"}
     for name, knob in tenv.KNOBS.items():
         assert getattr(tenv, name) == name
         assert knob["default"] == jenv.KNOBS[name]["default"]

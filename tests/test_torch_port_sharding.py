@@ -6,7 +6,8 @@ In process: ``make_param_specs`` on the full-width TransformerLM's flax
 tree (vocab 30522: replicated embedding and head at tp 4), MoE leaves and
 misfit leaves, at several meshes; the port's table of flax paths and
 shapes against ``TransformerLM.init``'s tree; ``batch_spec``,
-``constrain``; ``to_serving`` raising (item 14).
+``constrain``; ``TwoDZero.to_serving`` at (1, 1) against the JAX
+package's on the same params.
 
 4-rank gloo jobs (tests/torch_port_sharding_worker.py):
 
@@ -21,7 +22,9 @@ shapes against ``TransformerLM.init``'s tree; ``batch_spec``,
 - ``twod``: ``TwoDZero`` at (dp 2, tp 2) on tests/test_twod.py's toy
   loss, 2 Adam steps, then ``reshard_2d`` to (dp 1, tp 2) and a step:
   1e-6 against ``horovod_tpu.parallel.twod``, bit-equal against the
-  port's own same-mesh oracle, the moments moved bit-exactly.
+  port's own same-mesh oracle, the moments moved bit-exactly;
+  ``to_serving`` over the group before the steps bit-equal to the JAX
+  package's, after them within 1e-6.
 - ``axis``: the collectives and their backwards against ``lax.all_gather``
   / ``lax.psum_scatter`` under ``shard_map``.
 """
@@ -167,15 +170,47 @@ def test_batch_spec_constrain_and_partition_spec():
         tshard.constrain(x, {"dp": 2, "tp": 4}, tshard.P("dp", "tp"))
 
 
-def test_to_serving_names_item_14():
-    tz = ttwod.TwoDZero(functools.partial(torch.optim.Adam, lr=1e-2),
-                        {"dp": 1, "tp": 1})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tz.to_serving({"w": torch.zeros(2)})
+def test_twod_refuses_reductions_other_than_average_and_sum():
+    from horovod_tpu_torch.ops import reduce_ops
     with pytest.raises(ValueError, match="Average/Sum"):
-        from horovod_tpu_torch.ops import reduce_ops
         ttwod.TwoDZero(torch.optim.SGD, {"dp": 1, "tp": 1},
                        op=reduce_ops.Adasum)
+
+
+@pytest.mark.parametrize("layout,world", [("replicated", 1),
+                                          ("replicated", 2),
+                                          ("rows", 1), ("rows", 2),
+                                          ("rows", 3)])
+def test_to_serving_on_one_rank_matches_jax(layout, world):
+    # At (1, 1) the port runs the planner's program in this process; the
+    # JAX package reads its mesh's shards. Both equal the params.
+    glob = w.twod_params()
+    tz = ttwod.TwoDZero(functools.partial(torch.optim.Adam, lr=1e-2),
+                        {"dp": 1, "tp": 1})
+    tparams = {k: (torch.as_tensor(v) if not isinstance(v, dict) else
+                   {kk: torch.as_tensor(vv) for kk, vv in v.items()})
+               for k, v in glob.items()}
+    tz.ensure_plan(tparams)
+    jtz = jtwod.TwoDZero(optax.adam(1e-2), jtwod.make_mesh_2d(1, 1))
+    jparams = _jax_on_mesh(jtz, glob)
+    for host in range(world):
+        got = tz.to_serving(tparams, serving_world=world, serving_rank=host,
+                            layout=layout)
+        want = jtz.to_serving(jparams, serving_world=world,
+                              serving_rank=host, layout=layout)
+        got_l, want_l = ttree.leaves(got), jax.tree.leaves(want)
+        assert len(got_l) == len(want_l)
+        for g, wv in zip(got_l, want_l):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(wv))
+
+
+def _jax_on_mesh(jtz, glob):
+    """``glob`` placed on ``jtz``'s mesh by its param specs."""
+    params = jax.tree.map(jnp.asarray, glob)
+    jtz.ensure_plan(params)
+    return jax.tree.map(lambda leaf, spec: jax.device_put(
+        np.asarray(leaf), NamedSharding(jtz.mesh, spec)), params,
+        jtz.param_specs, is_leaf=lambda x: hasattr(x, "shape"))
 
 
 # -- shard_model -------------------------------------------------------------
@@ -350,6 +385,43 @@ def test_reshard_2d_moves_the_moments_and_the_next_step_holds(jobs):
 
 
 # -- axis ----------------------------------------------------------------------
+
+def test_to_serving_over_the_group_matches_jax(jobs):
+    # (dp 2, tp 2): every rank holds only its shard; execute_group moves
+    # the tensor-local params to the serving layouts. Before the steps
+    # the same inputs give the JAX package's outputs bit for bit; after
+    # them, the JAX run's (its params within 1e-6 of the port's).
+    res = jobs.get("twod")
+    want = _jax_twod()
+    jtz = jtwod.TwoDZero(optax.adam(w.TWOD_LR), jtwod.make_mesh_2d(2, 2))
+    init = _jax_on_mesh(jtz, w.twod_params())
+    for tag, params, exact in (("init", init, True),
+                               ("step", want["p"], False)):
+        jrep = jax.tree.leaves(jtz.to_serving(params))
+        jrows = {world: [jax.tree.leaves(jtz.to_serving(
+            params, serving_world=world, serving_rank=h, layout="rows"))
+            for h in range(world)] for world in w.SERVING_ROWS}
+
+        def check(got, wv):
+            if exact:
+                np.testing.assert_array_equal(got, np.asarray(wv))
+            else:
+                np.testing.assert_allclose(got, np.asarray(wv), rtol=1e-6,
+                                           atol=1e-6)
+        for j, leaf in enumerate(jrep):
+            check(res[0][f"serve_{tag}_rep_{j}"], leaf)
+        for world, hosts in jrows.items():
+            for h, leaves in enumerate(hosts):
+                for j, leaf in enumerate(leaves):
+                    check(res[h][f"serve_{tag}_rows{world}_{j}"], leaf)
+        # the rows of every world reassemble the replicated tree exactly
+        assert w.serving_equal(res, tag, [res[0][f"serve_{tag}_rep_{j}"]
+                                          for j in range(len(jrep))])
+    assert w.serving_equal(res, "init", [
+        np.asarray(x) for x in jax.tree.leaves(w.twod_params())])
+    for r in range(1, N):
+        assert "serve_init_rep_0" not in res[r]
+
 
 def _axis_mesh():
     return Mesh(np.array(jax.devices()[:N]), ("a",))

@@ -19,7 +19,8 @@ def _sharded_result():
                "params_equal": True, "launches": [launches] * 3},
         "group": {"bit_equal": True},
         "twod": {"losses": [3.0, 2.0, 1.0], "plain_losses": [3.0, 2.0, 1.0],
-                 "max_param_diff": 0.0},
+                 "max_param_diff": 0.0, "serve_replicated_equal": True,
+                 "serve_rows_equal": True},
     }
 
 
@@ -32,6 +33,8 @@ def _sharded_result():
     (("group", "bit_equal"), False, "round trip"),
     (("twod", "max_param_diff"), 1e-7, "TwoDZero"),
     (("twod", "losses"), [3.0, 2.0, 1.5], "TwoDZero"),
+    (("twod", "serve_replicated_equal"), False, "to_serving"),
+    (("twod", "serve_rows_equal"), False, "to_serving"),
     (("backend",), "gloo", "not NCCL"),
 ])
 def test_sharded_verdict_holds_each_check(path, value, phrase):

@@ -17,12 +17,15 @@ MODE:
 - ``twod``: ``TwoDZero`` at (dp 2, tp 2) on the toy loss of
   tests/test_twod.py, 2 steps against the port's same-mesh oracle, then
   ``reshard_2d`` to (dp 1, tp 2) and one step on the new mesh against the
-  oracle there.
+  oracle there; ``to_serving`` of the params before and after the steps,
+  replicated at serving world 1 and in rows at serving worlds 2 and 4.
 
 Every case writes ``OUT/r<rank>.npz``; a failure writes ``OUT/r<rank>.err``
 and exits 1. MODE ``card`` (tests/test_torch_port_sharding_cuda.py) runs
 rank r on ``cuda:r`` of an NCCL group at the TransformerLM's full width
-and writes ``OUT/r<rank>.json``.
+and writes ``OUT/r<rank>.json``; MODE ``serve_card``
+(tests/test_torch_port_serving_cuda.py) runs ``twod`` on ``cuda:r`` at
+the MLP's widths and writes its ``to_serving`` checks there.
 """
 
 import functools
@@ -270,6 +273,7 @@ def twod_run(r, glob, batch, inner, out):
     mine = batch[d * rows:(d + 1) * rows]
     state = tz4.init_state(local)
     step = tz4.make_step(twod_loss)
+    serving_case(tz4, r, local, "init", out)
     o_leaves = [x.clone() for x in T.leaves(local)]
     o_opt = inner(o_leaves)
     o_step = _oracle(tz4, o_leaves, o_opt)
@@ -284,6 +288,7 @@ def twod_run(r, glob, batch, inner, out):
     for k in range(len(tz4.plan.buckets)):
         for slot, v in state.moments(k).items():
             out[f"m4_{k}_{slot}"] = _np(v)
+    serving_case(tz4, r, p, "step", out)
     # (2, 2) -> (1, 2): ranks 2 and 3 leave; the moments move by the plan.
     tz2 = twod.TwoDZero(inner, mesh2)
     new_state = twod.reshard_2d(state, tz4, tz2, glob)
@@ -302,6 +307,54 @@ def twod_run(r, glob, batch, inner, out):
     for j, leaf in enumerate(T.leaves(pa)):
         out[f"p2_{j}"] = _np(leaf)
         out[f"oracle_p2_{j}"] = _np(o_leaves[j])
+
+
+SERVING_ROWS = (2, 4)
+
+
+def serving_case(tz, r, params, tag, out):
+    """``to_serving`` of this rank's tensor-local ``params`` over the
+    world group: replicated at serving world 1 (rank 0 receives it), and
+    in rows at each of ``SERVING_ROWS`` (rank r < world receives host r's
+    rows). Writes ``serve_<tag>_rep_<j>`` and ``serve_<tag>_rows<W>_<j>``."""
+    import time
+
+    from horovod_tpu_torch.utils import tree as T
+    t0 = time.perf_counter()
+    rep = tz.to_serving(params)
+    if _on_cuda(params):
+        torch.cuda.synchronize()
+    out[f"serve_{tag}_rep_ms"] = np.array(
+        (time.perf_counter() - t0) * 1e3)
+    if r == 0:
+        for j, leaf in enumerate(T.leaves(rep)):
+            out[f"serve_{tag}_rep_{j}"] = _np(leaf)
+    else:
+        assert rep is None
+    for world in SERVING_ROWS:
+        rows = tz.to_serving(params, serving_world=world, layout="rows")
+        if r < world:
+            for j, leaf in enumerate(T.leaves(rows)):
+                out[f"serve_{tag}_rows{world}_{j}"] = _np(leaf)
+
+
+def _on_cuda(tree):
+    from horovod_tpu_torch.utils import tree as T
+    return T.leaves(tree)[0].is_cuda
+
+
+def serving_equal(res, tag, want):
+    """Whether the ``to_serving`` outputs of ranks ``res`` equal the
+    global leaves ``want`` bit for bit: rank 0's replicated tree, and the
+    rows of each serving world concatenated over its hosts."""
+    ok = all(np.array_equal(res[0][f"serve_{tag}_rep_{j}"], w)
+             for j, w in enumerate(want))
+    for world in SERVING_ROWS:
+        for j, w in enumerate(want):
+            got = np.concatenate([res[h][f"serve_{tag}_rows{world}_{j}"]
+                                  for h in range(world)])
+            ok &= np.array_equal(got, w)
+    return bool(ok)
 
 
 def twod_moved(res, r):
@@ -374,7 +427,7 @@ def main():
     torch.set_num_threads(1)
     import datetime
     import torch.distributed as dist
-    card = mode == "card"
+    card = mode in ("card", "serve_card")
     try:
         kw = {}
         if card:
@@ -385,7 +438,9 @@ def main():
                                 init_method=f"tcp://127.0.0.1:{port}",
                                 rank=rank, world_size=size, **kw)
         out = {}
-        if card:
+        if mode == "serve_card":
+            serve_card_case(rank, size, out)
+        elif card:
             card_case(rank, size, out)
         elif mode in SHARD_MESHES:
             shard_case(rank, size, out, mode,
@@ -537,6 +592,43 @@ def card_case(r, n, out):
                             or k == "loss_after"),
             loss_after=float(t["loss_after"]))
     out["twod"] = tw
+
+
+
+def serve_card_case(r, n, out):
+    """``TwoDZero`` at (dp 2, tp 2) at the MLP's widths on ``cuda:r``:
+    ``to_serving`` through ``execute_group`` over NCCL, before and after
+    2 steps, against the global parameters (the initial tree, and the
+    tree the ranks' tensor-local params make after the steps)."""
+    import chip_smoke as cs
+    import torch.distributed as dist
+    from horovod_tpu_torch.parallel import twod
+    from horovod_tpu_torch.utils import tree as T
+    glob, batch = cs.twod_inputs(torch.device("cuda", r))
+    t = {}
+    twod_run(r, glob, batch, functools.partial(torch.optim.Adam,
+                                               lr=TWOD_LR), t)
+    everyone = [None] * n
+    dist.all_gather_object(everyone, t)
+    tz = twod.TwoDZero(functools.partial(torch.optim.Adam, lr=TWOD_LR),
+                       twod.make_mesh_2d(2, 2))
+    tz.ensure_plan(glob)
+    stepped = []
+    for j, (spec, leaf) in enumerate(zip(tz._spec_leaves(),
+                                         T.leaves(glob))):
+        # ranks 0 and 1 (dp row 0) hold the two tp blocks
+        blocks = [everyone[tt][f"p4_{j}"] for tt in range(2)]
+        dim = next((i for i, names in enumerate(tuple(spec))
+                    if "tp" in twod._names(names)), None)
+        stepped.append(blocks[0] if dim is None
+                       else np.concatenate(blocks, axis=dim))
+    out["serving"] = {
+        "init_equal": serving_equal(everyone, "init",
+                                    [_np(x) for x in T.leaves(glob)]),
+        "step_equal": serving_equal(everyone, "step", stepped),
+        "leaves": len(stepped),
+        "param_bytes": int(sum(x.nbytes for x in stepped)),
+        "rep_ms": float(t["serve_step_rep_ms"])}
 
 
 if __name__ == "__main__":
