@@ -117,6 +117,21 @@ paths at full width:
   worker 0 in mid-flight migrates its 8 long streams to worker 1 with
   verified page digests and no recompute. ``[sharded]``'s child also
   holds ``TwoDZero.to_serving`` bit-equal to the params.
+- ``[fleet]`` (after ``[serving]``): fleet arbitration on one card. An
+  elastic job of the port's driver (one slot, ``--min-np 1 --max-np 1``,
+  discovery from the arbiter's target file, the driver journal on) runs
+  ``--fleet-child``: the flagship 8 steps, a commit after each. Beside it
+  two ``ServingWorker``s (ToyLM on the card, HTTP) and a ``Router`` on the
+  driver's KV store, and the ``FleetArbiter`` over the journaled ``fleet``
+  scope through ``HttpBackend`` (window 1, cooldown 3 s, ebb idle 3 s,
+  ``HVDTPU_FLEET_MIN_TRAIN_SLOTS=0``). A 32-request burst makes it lend
+  the job's only slot (``train_to_serve``: the child checkpoints the commit
+  it hands off at and exits 83, counted as ``arbiter_transfer``; serving
+  grows to two workers); a calm trickle makes it take the slot back
+  (``serve_to_train``: worker 1 drains, migrating its streams; a fresh
+  child resumes from the checkpoint). Every stream equals the host oracle,
+  the losses are held to ``[chaos]``'s control (1e-6 relative), and the
+  ledger's split is read back from the journal.
 
 Every phase prints ``[time] <phase> <s>`` when it ends.
 For each path it times 10 more steps on the host (enqueue time, step time,
@@ -408,12 +423,14 @@ def fail(msg):
     sys.exit(1)
 
 
-def time_ms(fn, reps, flush_buf):
+def time_ms(fn, reps, flush_buf, warm=True):
     """Mean device ms of ``fn`` over ``reps`` runs, from CUDA events around
     each run, with the L2 cache flushed before each. Every run is queued
     behind a device-side sleep before the host waits, so the events time
-    the device's work and not the host's launch overhead."""
-    fn()
+    the device's work and not the host's launch overhead. ``warm``: one
+    untimed run first (a plain version that takes seconds needs none)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     events = []
     torch.cuda._sleep(50_000_000)   # ~25 ms of clock cycles: host head start
@@ -3039,7 +3056,8 @@ def lse_kernel_rows(fa, flush_buf):
             b_ms, b_by = bound(base, bh, s, s, d, pairs, 2)
             r = {"max_abs_err": errs[base],
                  "ms": time_ms(kern[base], 20, flush_buf),
-                 "plain_ms": (time_ms(plain[base], 1, flush_buf)
+                 "plain_ms": (time_ms(plain[base], 1, flush_buf,
+                                      warm=False)
                               if kind != "future" else None),
                  "bound_ms": b_ms, "bound_by": b_by,
                  "library_ms": lib[base]}
@@ -4286,11 +4304,16 @@ def _launcher_env(**extra):
     return env
 
 
+def _child(child, out):
+    """``python chip_smoke.py CHILD OUT``: a phase's worker command."""
+    return [sys.executable, os.path.abspath(__file__), child, out]
+
+
 def _launcher(args, child, out):
     """``python -m horovod_tpu_torch.runner.launch ARGS python
     chip_smoke.py CHILD OUT``."""
     return [sys.executable, "-m", "horovod_tpu_torch.runner.launch", *args,
-            sys.executable, os.path.abspath(__file__), child, out]
+            *_child(child, out)]
 
 
 def _discovery(tmp):
@@ -5233,6 +5256,453 @@ def serving_phase(models):
         torch.cuda.empty_cache()
 
 
+FLEET_STEP_SLEEP = 0.5      # the child's pause after each commit
+FLEET_KNOBS = dict(HVDTPU_FLEET_WINDOW="1", HVDTPU_FLEET_COOLDOWN="3",
+                   HVDTPU_FLEET_EBB_IDLE_S="3",
+                   HVDTPU_FLEET_MIN_TRAIN_SLOTS="0",
+                   HVDTPU_FLEET_TICK_S="0.25",
+                   HVDTPU_SERVING_SCALE_UP_DEPTH="8")
+FLEET_START_TIMEOUT = 300   # the driver's wait below --min-np
+FLEET_CALM_NEW = 64         # max_new_tokens of the calm trickle's streams
+
+
+class _FleetPlane:
+    """The serving half of ``[fleet]``: ``ServingWorker``s (ToyLM and page
+    pool on the card) serving HTTP, registered in the training driver's KV
+    store, and a ``Router`` over them; ``set_slots`` is the serving
+    actuation the arbiter drives."""
+
+    def __init__(self, driver, cohort="serve", devices=None):
+        from horovod_tpu_torch.serving.router import Router
+        self.driver = driver
+        self.cohort = cohort
+        self.devices = devices or {}   # wid -> device (default: current)
+        self.workers = {}
+        self.router = Router(members={cohort: []})
+        self.peak = 0
+        self.retired = {}   # wid -> its scheduler's stats when stopped
+
+    def set_slots(self, n):
+        from horovod_tpu_torch.serving import worker as sworker
+        from horovod_tpu_torch.serving.router import WorkerClient
+        token = self.driver.token
+        for wid in range(n):
+            if wid in self.workers:
+                continue
+            w = sworker.ServingWorker(cohort=self.cohort, wid=wid,
+                                      max_batch_tokens=SERVING_BATCH_TOKENS,
+                                      device=self.devices.get(wid))
+            port = w.serve_http(addr="127.0.0.1", token=token)
+            w.start().register("127.0.0.1", self.driver.port, token,
+                               advertise=f"127.0.0.1:{port}")
+            w.client = WorkerClient(f"http://127.0.0.1:{port}", token=token)
+            w.client.wid = wid
+            self.workers[wid] = w
+        gone = [self.workers.pop(wid) for wid in list(self.workers)
+                if wid >= n]
+        self.router.members[self.cohort] = [
+            w.client for w in self.workers.values()]
+        self.peak = max(self.peak, len(self.workers))
+        for w in gone:
+            w.stop()
+            self.retired[w.wid] = w.scheduler.stats()
+            for key in (f"member.{self.cohort}.{w.wid}",
+                        f"stats.{self.cohort}.{w.wid}"):
+                self.driver.server.delete(sworker.SERVING_SCOPE, key)
+
+    def stop(self):
+        for w in self.workers.values():
+            w.stop()
+        self.workers.clear()
+
+
+def _fleet_wave(router, reqs, model, record, prefix):
+    """``reqs`` sent at once through ``router``, a thread each; appends
+    ``(kind, seconds)`` per request to ``record`` (``ok``: the stream
+    equals the host oracle). Returns the threads."""
+    import threading
+
+    def send(i, prompt, n):
+        t0 = time.perf_counter()
+        status, body = router.generate({"id": f"{prefix}{i}",
+                                        "prompt": prompt,
+                                        "max_new_tokens": n})
+        dt = time.perf_counter() - t0
+        if status == 200:
+            same = body.get("tokens") == model.reference_completion(prompt,
+                                                                    n)
+            record.append(("ok" if same else "corrupt", dt))
+        else:
+            record.append(("rejected" if status in (429, 503)
+                           else f"error {status}", dt))
+
+    threads = [threading.Thread(target=send, args=(i, p, n))
+               for i, (p, n) in enumerate(reqs)]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def _fleet_results(out):
+    """The children's reports (``OUT.<pid>.json``), in start order."""
+    import glob
+    res = []
+    for path in glob.glob(out + ".*.json"):
+        with open(path) as f:
+            res.append(json.load(f))
+    return sorted(res, key=lambda r: r["t_start"])
+
+
+def fleet_phase(control_losses):
+    """Fleet arbitration on one card: the arbiter lends the training job's
+    only slot to serving under a burst and gives it back when serving is
+    calm (see the module docstring). Returns the kernels' launches."""
+    import shutil
+    import tempfile
+    import threading
+    from horovod_tpu_torch.fleet import actuators as fact
+    from horovod_tpu_torch.fleet import arbiter as farb
+    from horovod_tpu_torch.fleet import ledger as fled
+    from horovod_tpu_torch.fleet import policy as fpol
+    from horovod_tpu_torch.runner import http_client, journal
+    from horovod_tpu_torch.runner.elastic_driver import (ElasticDriver,
+                                                         ElasticSettings)
+    from horovod_tpu_torch.runner.job import Settings
+    from horovod_tpu_torch.serving import autoscale
+    from horovod_tpu_torch.serving.model import ToyLM
+
+    # [ha] left this process's KV client at term 2: its header would
+    # teach this job's store (term 1) a newer term and fence the driver.
+    http_client.reset_failover()
+
+    class Actuators(fact.TargetFileActuators):
+        def set_serve_slots(self, slots):
+            super().set_serve_slots(slots)   # the desired-state file too
+            plane.set_slots(slots)
+
+    rng = np.random.default_rng(1)
+
+    def requests(n, new=SERVING_NEW):
+        lens = rng.integers(SERVING_PROMPT[0], SERVING_PROMPT[1] + 1, n)
+        news = rng.integers(new[0], new[1] + 1, n)
+        return [(rng.integers(0, 97, int(a)).tolist(), int(b))
+                for a, b in zip(lens, news)]
+
+    with tempfile.TemporaryDirectory(prefix="hvd-fleet-") as tmp:
+        need = 3 * 365_000_000 * 4
+        free = shutil.disk_usage(tmp).free
+        if free < 2 * need:
+            fail(f"[fleet] {tmp} has {free / 1e9:.1f} GB free; the phase "
+                 f"writes a checkpoint of about {need / 1e9:.1f} GB")
+        out = os.path.join(tmp, "fleet")
+        jdir = os.path.join(tmp, "journal")
+        train_target = os.path.join(tmp, "train.target")
+        autoscale.write_target(train_target, ["localhost:1"])
+        script = os.path.join(tmp, "discover.sh")
+        with open(script, "w") as f:
+            f.write("\n".join(autoscale.discovery_script_lines(train_target))
+                    + "\n")
+        os.chmod(script, 0o755)
+        es = ElasticSettings(
+            Settings(num_proc=1, start_timeout=FLEET_START_TIMEOUT,
+                     output_filename=os.path.join(tmp, "logs"),
+                     env=_launcher_env(HVDTPU_CHECKPOINT_KEEP="1")),
+            discovery_script=script, min_np=1, max_np=1,
+            discovery_interval=0.2, sigkill_deadline=300, journal_dir=jdir)
+        driver = ElasticDriver(es, _child("--fleet-child", out))
+        plane = _FleetPlane(driver)
+        saved_env = {k: os.environ.get(k) for k in FLEET_KNOBS}
+        os.environ.update(FLEET_KNOBS)
+        try:
+            knobs = fpol.fleet_knobs()
+            ledger = fled.LeaseLedger(fled.HttpBackend(
+                "127.0.0.1", driver.port, token=driver.token))
+            act = Actuators(train_target, os.path.join(tmp, "serve.target"),
+                            kv_put=lambda s, k, v: driver.server.put(
+                                s, k, v, term=driver._wt()))
+            arbiter = farb.FleetArbiter(ledger, act,
+                                        fact.DriverProbes(driver),
+                                        train_slots=1, serve_slots=1)
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        oracle = ToyLM(device="cpu")
+        box, seen, waves = {}, [], {"burst": [], "after": [], "calm": []}
+        stop_calm = threading.Event()
+        t0 = time.perf_counter()
+
+        def run_driver():
+            try:
+                box["rc"] = driver.run()
+            except Exception as e:  # noqa: BLE001 — reported below
+                box["error"] = repr(e)
+
+        def tick_until(pred, deadline_s):
+            deadline = time.monotonic() + deadline_s
+            while time.monotonic() < deadline and thread.is_alive():
+                lease = arbiter.tick()
+                if lease is not None and (lease["id"], lease["state"]) \
+                        not in [(i, s) for i, s, _ in seen]:
+                    seen.append((lease["id"], lease["state"],
+                                 time.perf_counter() - t0))
+                if pred(lease):
+                    return lease
+                time.sleep(knobs["tick_s"])
+            return None
+
+        def calm():
+            while not stop_calm.is_set():
+                for t in _fleet_wave(plane.router,
+                                     requests(2, (FLEET_CALM_NEW,) * 2),
+                                     oracle, waves["calm"], "calm"):
+                    t.join(timeout=300)
+
+        thread = threading.Thread(target=run_driver, daemon=True)
+        try:
+            plane.set_slots(1)
+            thread.start()
+            deadline = time.monotonic() + 300
+            while not any(r["losses"] for r in _fleet_results(out)):
+                if time.monotonic() > deadline or not thread.is_alive():
+                    fail(f"[fleet] the training child never stepped: {box}")
+                time.sleep(0.05)
+            t_burst = time.perf_counter()
+            burst = _fleet_wave(plane.router, requests(SERVING_REQUESTS),
+                                oracle, waves["burst"], "burst")
+            surge = tick_until(lambda l: l is not None
+                               and l["state"] == "complete", 300)
+            t_surge = time.perf_counter()
+            during = {"train": len(driver.workers),
+                      "serve": len(plane.workers)}
+            for t in burst:
+                t.join(timeout=300)
+            for t in _fleet_wave(plane.router, requests(SERVING_REQUESTS),
+                                 oracle, waves["after"], "after"):
+                t.join(timeout=300)
+            t_calm = time.perf_counter()
+            trickle = threading.Thread(target=calm, daemon=True)
+            trickle.start()
+            ebb = tick_until(lambda l: l is not None
+                             and l["direction"] == "serve_to_train"
+                             and l["state"] == "complete", 120) \
+                if surge is not None else None
+            t_ebb = time.perf_counter()
+            split, active = ledger.split(), ledger.active()
+            stop_calm.set()
+            trickle.join(timeout=300)
+            thread.join(timeout=600)
+        finally:
+            stop_calm.set()
+            plane.stop()
+            if thread.is_alive():   # a failed check: end the job now
+                for w in list(driver.workers.values()) + [
+                        w for w, _ in driver.stopping]:
+                    w.proc.kill()
+                driver.server.stop()
+                thread.join(timeout=60)
+            driver.server.stop()
+        state, _, _ = journal.read_dir(jdir)
+        durable = {k: json.loads(v) for k, v in state["kv"].get(
+            "fleet", {}).items() if k == "split"}
+        children = _fleet_results(out)
+        logs = ""
+        for name in ("stdout", "stderr"):
+            path = os.path.join(tmp, "logs", "rank.localhost_0", name)
+            if os.path.exists(path):
+                logs += open(path).read()[-3000:]
+    bad = []
+    if "error" in box or box.get("rc") != 0:
+        bad.append(f"the training job ended {box}")
+    if surge is None or ebb is None:
+        log(logs)
+        fail(f"[fleet] leases did not complete (train_to_serve "
+             f"{'ok' if surge else 'no'}, serve_to_train "
+             f"{'ok' if ebb else 'no'}); states {seen}; {box}")
+    by_lease = {}
+    for lid, st, t in seen:
+        by_lease.setdefault(lid, []).append(f"{st} {t - (t_burst - t0):.2f}")
+    for lid, states in by_lease.items():
+        log(f"[fleet] lease {lid}: " + ", ".join(states)
+            + " (s after the burst)")
+    want_states = [("train_to_serve", ["preempting", "resharding",
+                                       "activating", "complete"]),
+                   ("serve_to_train", ["draining", "returning",
+                                       "complete"])]
+    got_states = [(lid.rsplit("-", 2)[0], [s.split()[0] for s in sts])
+                  for lid, sts in by_lease.items()]
+    if got_states != want_states:
+        bad.append(f"lease states {got_states}")
+    if surge["wids"] != ["localhost:0"] or ebb["wids"] != ["localhost:1"]:
+        bad.append(f"victims {surge['wids']} / {ebb['wids']}")
+    if during != {"train": 0, "serve": 2} or plane.peak != 2:
+        bad.append(f"the split during the lease {during}")
+    if split != {"train": 1, "serve": 1, "leased": 0} or active is not None \
+            or durable.get("split") != split:
+        bad.append(f"the ledger after the ebb: split {split}, journaled "
+                   f"{durable}, active {active}")
+    causes = dict(driver.preempt_causes)
+    if causes != {"preempt": 0, "arbiter_transfer": 1} \
+            or driver.fail_counts or driver.blacklist:
+        bad.append(f"preempt_causes {causes}, fail_counts "
+                   f"{driver.fail_counts}, blacklist {driver.blacklist}")
+
+    def p99(record):
+        lat = sorted(t for kind, t in record if kind == "ok")
+        return lat[min(len(lat) - 1, int(0.99 * len(lat)))] if lat \
+            else float("nan")
+
+    drained = plane.retired.get(1, {})
+    if not drained.get("draining"):
+        bad.append(f"serving worker 1 was stopped undrained: {drained}")
+    for name, record in waves.items():
+        kinds = sorted({k for k, _ in record})
+        if not record or [k for k in kinds if k not in ("ok", "rejected")]:
+            bad.append(f"the {name} wave's outcomes {kinds}")
+    log(f"[fleet] burst to complete: train_to_serve "
+        f"{t_surge - t_burst:.2f} s, serve_to_train "
+        f"{t_ebb - t_calm:.2f} s after the calm began (ebb idle "
+        f"{knobs['ebb_idle_s']} s, cooldown {knobs['cooldown_s']} s, "
+        f"window {knobs['window']}); p99 of the burst wave "
+        f"({len(waves['burst'])} requests, 1 worker until the lease) "
+        f"{p99(waves['burst']):.3f} s, of the wave after the lease "
+        f"({len(waves['after'])}, 2 workers) {p99(waves['after']):.3f} s; "
+        f"calm trickle {len(waves['calm'])} requests; the drained worker "
+        f"migrated {drained.get('migrated_out')} streams out "
+        f"({drained.get('migrate_failed')} refused) and served "
+        f"{drained.get('completed')} in all; every accepted "
+        f"stream equals the oracle "
+        f"({sum(k == 'ok' for w in waves.values() for k, _ in w)} ok, "
+        f"{sum(k == 'rejected' for w in waves.values() for k, _ in w)} "
+        f"rejected)")
+    if len(children) != 2:
+        log(logs)
+        fail(f"[fleet] expected two training processes, got "
+             f"{len(children)}")
+    first, second = children
+    losses = {}
+    for c in children:
+        for s, v in c["losses"].items():
+            if s in losses:
+                bad.append(f"step {s} ran twice")
+            losses[s] = v
+    got = [losses.get(str(s)) for s in range(1, CHAOS_STEPS + 1)]
+    if None in got:
+        log(logs)
+        fail(f"[fleet] steps missing: {sorted(losses, key=int)}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, control_losses))
+    handed = first.get("saved")
+    log(f"[fleet] training: pid {first['pid']} ({first['device']}, "
+        f"{first['backend']}) stepped {sorted(first['losses'], key=int)}, "
+        f"handed off at the commit of step {handed} (checkpoint "
+        f"{first.get('save_s', float('nan')):.2f} s) with exit 83 "
+        f"(preempt_causes {causes}); pid {second['pid']} "
+        f"({second['device']}) resumed step {second.get('resumed')} in "
+        f"{second.get('restore_s', float('nan')):.2f} s and stepped "
+        f"{sorted(second['losses'], key=int)}; losses {got} against "
+        f"[chaos]'s uninterrupted control: max relative difference "
+        f"{rel:.2e} (limit {CHAOS_RTOL:.0e}), bit-equal "
+        f"{got == list(control_losses)}")
+    if rel > CHAOS_RTOL:
+        bad.append("losses differ from the uninterrupted control's")
+    if handed is None or second.get("resumed") != handed \
+            or first["pid"] == second["pid"] or not second.get("done") \
+            or max(map(int, first["losses"])) != handed:
+        bad.append("the second process did not resume from the first's "
+                   "hand-off commit")
+    for c in children:
+        if c["backend"] != CARD_BACKEND or not c["device"].startswith(
+                "cuda"):
+            bad.append(f"a training process ran on {c['device']}, "
+                       f"{c['backend']}")
+    if bad:
+        log(logs)
+        fail("[fleet] " + "; ".join(bad))
+    return {n: first["launch_sum"][n] + second["launch_sum"][n]
+            for n in first["launch_sum"]}
+
+
+def fleet_child(out):
+    """The worker of ``fleet_phase`` (``chip_smoke.py --fleet-child OUT``):
+    the flagship under ``hvd.elastic.run``, a commit after every step. On
+    a SIGTERM it hands off at its next commit with exit 83, and the job's
+    last rank first saves a checkpoint of that commit; a fresh process
+    resumes from the newest checkpoint. Reports to ``OUT.<pid>.json``
+    after every step."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as hvd_torch
+    from horovod_tpu_torch import basics, checkpoint, elastic, models
+    from horovod_tpu_torch.ops import flash_attention as fa
+    res = {"pid": os.getpid(), "t_start": time.time(), "losses": {},
+           "sizes": {}, "done": False}
+    path = f"{out}.{os.getpid()}.json"
+
+    def report():
+        with open(path + ".tmp", "w") as f:
+            json.dump(res, f)
+        os.replace(path + ".tmp", path)
+
+    hvd.init()
+    res["backend"] = basics.runtime().backend.name
+    ckpt_dir = os.path.join(os.path.dirname(out), "ckpt")
+    cfg, model, step, x, y = transformer_setup(hvd, models)
+    opt = step.optimizer
+    res["device"] = str(next(model.parameters()).device)
+    start = 0
+    if os.path.isdir(ckpt_dir):
+        t0 = time.perf_counter()
+        start, saved = checkpoint.restore_latest(ckpt_dir)
+        model.load_state_dict(checkpoint.to_tensors(saved["model"]))
+        opt.load_state_dict(checkpoint.to_tensors(saved["opt"]))
+        del saved
+        torch.cuda.synchronize()
+        res["resumed"], res["restore_s"] = start, time.perf_counter() - t0
+    launches = []
+    fa.reset_launches()
+
+    class HandoffState(hvd_torch.elastic.TorchState):
+        def check_host_updates(self):
+            if elastic.preempt_requested():
+                if hvd.size() == 1:
+                    # The job's last rank leaves: its state goes with it,
+                    # so it checkpoints the commit it hands off at (in a
+                    # larger cohort the survivors keep the state).
+                    t0 = time.perf_counter()
+                    checkpoint.save_step(ckpt_dir, self.step, {
+                        "model": model.state_dict(),
+                        "opt": opt.state_dict()})
+                    res["saved"] = self.step
+                    res["save_s"] = time.perf_counter() - t0
+                res["launch_sum"] = _check_launches("fleet", launches)
+                report()
+            super().check_host_updates()
+
+    state = HandoffState(model, opt, step=start)
+
+    @hvd_torch.elastic.run
+    def train_loop(state):
+        while state.step < CHAOS_STEPS:
+            s = state.step + 1
+            r = _timed_steps(step, model, x, y, 1, fa)
+            launches.extend(r["launches"])
+            res["losses"][str(s)] = r["losses"][0]
+            res["sizes"][str(s)] = hvd.size()
+            state.step = s
+            report()
+            state.commit()
+            time.sleep(FLEET_STEP_SLEEP)
+        return state.step
+
+    train_loop(state)
+    res["launch_sum"] = _check_launches("fleet", launches)
+    res["done"] = True
+    report()
+    hvd.shutdown()
+
+
 def phase_done(name, t):
     """Prints ``[time] <name> <s>``: the wall seconds since ``t``; returns
     the time now."""
@@ -5365,6 +5835,10 @@ def main():
     t = phase_done("ha", t)
     serving_phase(models)
     t = phase_done("serving", t)
+    fleet_launches = fleet_phase(control_losses)
+    log("[launches] [fleet] " + ", ".join(
+        f"{n}={c}" for n, c in fleet_launches.items()))
+    t = phase_done("fleet", t)
     phase_done("total", t0)
     log("[launches] " + ", ".join(f"{n}={c}" for n, c in launches.items()))
     if set(launches) != set(KERNELS) or not all(launches.values()):
@@ -5413,5 +5887,7 @@ if __name__ == "__main__":
         chaos_child(sys.argv[2])
     elif sys.argv[1:2] == ["--ha-child"]:
         ha_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--fleet-child"]:
+        fleet_child(sys.argv[2])
     else:
         main()

@@ -29,9 +29,10 @@ instead of silently disabling chaos — a chaos test that never injects
 would pass for the wrong reason.
 
 The spec grammar, points and actions are the JAX package's, so one
-``HVDTPU_CHAOS`` parses the same in both packages (the fleet points
-included; their sites come with the fleet plane, ROADMAP item 14; the
-serving plane's ``migrate_out`` and ``migrate_in`` fire at their sites).
+``HVDTPU_CHAOS`` parses the same in both packages, and every point fires
+at its site: the fleet plane's ``transfer`` (fleet/arbiter.py, after each
+lease transition's ledger write) and ``drain`` (fleet/actuators.py), the
+serving plane's ``migrate_out`` and ``migrate_in``.
 Not ported: the ``delay`` action's exemption from the sanitizer's blocking
 tripwire (the sanitizer is item 15); the port just sleeps.
 """

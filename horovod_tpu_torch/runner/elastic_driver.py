@@ -19,8 +19,10 @@ pids instead of child handles), and a healed stale primary finds the newer
 term by probing its standbys and demotes (``DEMOTED_RC``). ``driver`` is a
 chaos point (``kill``, ``partition``).
 
-Not ported: the fleet arbiter's transfer markers (ROADMAP queue A, item
-14); every graceful exit-83 hand-off counts as a preemption.
+Graceful exit-83 hand-offs are accounted by cause in ``preempt_causes``:
+``arbiter_transfer`` when the fleet arbiter marked the worker in the
+durable ``fleet`` scope before shrinking the target (fleet/ledger.py), else
+``preempt`` (a cloud notice).
 """
 
 import os
@@ -37,6 +39,7 @@ from .http_server import RendezvousServer, new_job_token
 from .job import _rendezvous_ip
 from ..chaos import ChaosSignal, inject as _chaos_inject
 from ..exceptions import PREEMPT_EXIT_CODE, RESTART_EXIT_CODE
+from ..fleet import ledger as fleet_ledger
 from .rendezvous import (ASSIGN_SCOPE, ELASTIC_SCOPE, EXIT_SCOPE,
                          PEER_SCOPE, VERSION_KEY)
 from ..telemetry import core as telemetry
@@ -275,7 +278,11 @@ class ElasticDriver:
         self.resets = 0
         self.completing = False
         self.succeeded = []
-        self.preempts = 0        # graceful exit-83 hand-offs
+        # Graceful-preemption cause ledger: cloud notice vs fleet
+        # arbiter lease transfer (the fleet/ chip arbiter marks its
+        # victims in the durable "fleet" KV scope before shrinking the
+        # target; docs/fault_tolerance.md "Fleet arbitration").
+        self.preempt_causes = {"preempt": 0, "arbiter_transfer": 0}
         self.log = get_logger()
         self._demoted = False
         self._last_term_probe = 0.0
@@ -662,10 +669,23 @@ class ElasticDriver:
                 self.server.delete(ELASTIC_SCOPE, key)
 
     def _count_preempt_exit(self, wid):
-        self.preempts += 1
+        """Account one graceful exit-83 hand-off to its cause. The
+        fleet arbiter marks its lease victims in the durable "fleet"
+        scope BEFORE the target shrinks (ledger-before-actuation), so
+        a marker present at exit time means this hand-off belongs to a
+        journaled transfer; the marker is retired durably (journaled,
+        term-fenced delete) so a promoted standby does not re-count it
+        and a later respawn of the slot is judged on its own."""
+        cause = "preempt"
+        key = fleet_ledger.TRANSFER_PREFIX + wid
+        if self.server.get(fleet_ledger.SCOPE, key):
+            cause = "arbiter_transfer"
+            self._jrec("kv_delete", scope=fleet_ledger.SCOPE, key=key)
+            self.server.delete(fleet_ledger.SCOPE, key, term=self._wt())
+        self.preempt_causes[cause] += 1
         self.log.info(
             "elastic driver: worker %s left after a graceful "
-            "preemption hand-off", wid)
+            "preemption hand-off (cause=%s)", wid, cause)
 
     def _sweep_exits(self):
         """Returns True when a failure changed membership."""

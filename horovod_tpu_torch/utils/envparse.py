@@ -399,6 +399,31 @@ SERVING_MIGRATE_MAX_BYTES = register(
     "Upper bound on one migrate_in POST body; a sequence's pages are "
     "chunked to stay under it (bounds target staging memory too)")
 
+# -- fleet arbitration (fleet/) -------------------------------------------
+FLEET_MIN_TRAIN_SLOTS = register(
+    "FLEET_MIN_TRAIN_SLOTS", "1",
+    "Floor the arbiter never shrinks the training cohort below")
+FLEET_MIN_SERVE_SLOTS = register(
+    "FLEET_MIN_SERVE_SLOTS", "1",
+    "Floor the arbiter never shrinks the serving cohort below")
+FLEET_WINDOW = register(
+    "FLEET_WINDOW", "3",
+    "Consecutive pressured observations before the arbiter proposes "
+    "a train->serve lease transfer (smoothing against blips)")
+FLEET_COOLDOWN = register(
+    "FLEET_COOLDOWN", "30",
+    "Seconds between arbiter transfers in either direction; bounds "
+    "reshard churn from an oscillating load")
+FLEET_EBB_IDLE_S = register(
+    "FLEET_EBB_IDLE_S", "60",
+    "Seconds the serving plane must stay unpressured before leased "
+    "slots ebb back to training (drain-first, never dropping an "
+    "accepted request)")
+FLEET_TICK_S = register(
+    "FLEET_TICK_S", "1",
+    "Arbiter control-loop period when running threaded (FleetArbiter"
+    ".start); each tick reads stats, steps leases, actuates")
+
 # -- kernels ----------------------------------------------------------------
 BRIDGE_FLASH = register(
     "BRIDGE_FLASH", "auto",

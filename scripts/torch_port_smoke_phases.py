@@ -1,15 +1,17 @@
 """Run phases of ``chip_smoke.py`` alone on one GPU, without the rest of
 the script:
 
-    python3 scripts/torch_port_smoke_phases.py [autotune] [chaos] [ha] [serving]
+    python3 scripts/torch_port_smoke_phases.py [autotune] [chaos] [ha] \
+        [serving] [fleet]
 
 Builds the kernels and the native core, then runs the phases named (all
-four by default). ``[autotune]``, ``[chaos]`` and ``[ha]`` first train the
-flagship TransformerLM 5 steps on the single-process plane (the reference
-losses the phases hold theirs to; ``chip_smoke.py`` passes ``[native]``'s),
-and ``[ha]`` needs ``[chaos]``'s uninjected control and runs it too.
-``[serving]`` needs neither. Prints ``[time] <phase> <s>`` after each, the
-card's name and power limit and ``PHASES OK`` with the seconds taken.
+five by default). ``[autotune]``, ``[chaos]``, ``[ha]`` and ``[fleet]``
+first train the flagship TransformerLM 5 steps on the single-process plane
+(the reference losses the phases hold theirs to; ``chip_smoke.py`` passes
+``[native]``'s), and ``[ha]`` and ``[fleet]`` need ``[chaos]``'s uninjected
+control and run it too. ``[serving]`` needs neither. Prints ``[time]
+<phase> <s>`` after each, the card's name and power limit and ``PHASES OK``
+with the seconds taken.
 """
 
 import os
@@ -25,7 +27,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 
-PHASES = ("autotune", "chaos", "ha", "serving")
+PHASES = ("autotune", "chaos", "ha", "serving", "fleet")
 
 
 def main(which):
@@ -43,7 +45,7 @@ def main(which):
            f"{torch.cuda.get_device_name(0)}")
     hvd.init()
     ref = {}
-    if {"autotune", "chaos", "ha"} & set(which):
+    if {"autotune", "chaos", "ha", "fleet"} & set(which):
         _, model, step, x, y = cs.transformer_setup(hvd, models)
         losses = [step(model, (x, y)).item() for _ in range(cs.TRAIN_STEPS)]
         cs.log(f"[train] losses {losses}")
@@ -54,7 +56,7 @@ def main(which):
     if "autotune" in which:
         cs.log(f"[launches] [autotune] {cs.autotune_phase(ref)}")
         t = cs.phase_done("autotune", t)
-    if "chaos" in which or "ha" in which:
+    if {"chaos", "ha", "fleet"} & set(which):
         launches, control = cs.chaos_phase(ref)
         cs.log(f"[launches] [chaos] {launches}")
         t = cs.phase_done("chaos", t)
@@ -64,6 +66,9 @@ def main(which):
     if "serving" in which:
         cs.serving_phase(models)
         t = cs.phase_done("serving", t)
+    if "fleet" in which:
+        cs.log(f"[launches] [fleet] {cs.fleet_phase(control)}")
+        t = cs.phase_done("fleet", t)
     hvd.shutdown()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -42,7 +42,7 @@ def test_import_pulls_in_no_jax_and_no_horovod_tpu():
     assert bad == "[]"
     # The walk reached every module of the telemetry, tracing and serving
     # planes, the models' remat and the BERT model, the programmatic and
-    # cluster launch and the migration spec.
+    # cluster launch, the migration and lease specs, and the fleet plane.
     for mod in ("telemetry.core", "telemetry.exposition",
                 "telemetry.aggregate", "telemetry.cli", "telemetry.spans",
                 "tracing", "tracing.recorder", "tracing.clock",
@@ -52,7 +52,10 @@ def test_import_pulls_in_no_jax_and_no_horovod_tpu():
                 "serving.scheduler", "serving.migration", "serving.router",
                 "serving.worker", "serving.state", "serving.autoscale",
                 "serving.metrics", "serving.cli", "runner.cluster",
-                "runner.task_exec", "analysis.protocol.migration_spec"):
+                "runner.task_exec", "analysis.protocol.migration_spec",
+                "analysis.protocol.lease_spec", "fleet", "fleet.ledger",
+                "fleet.policy", "fleet.metrics", "fleet.actuators",
+                "fleet.arbiter", "fleet.cli"):
         assert f"'horovod_tpu_torch.{mod}'" in imported, mod
 
 
@@ -214,7 +217,9 @@ def test_knobs_and_reduce_ops_match_the_jax_package():
         "SERVING_KV_PAGES", "SERVING_QUEUE_LIMIT", "SERVING_SCALE_UP_DEPTH",
         "SERVING_DRAIN_TIMEOUT", "SERVING_SLO_P99",
         "SERVING_MIGRATE_RETRIES", "SERVING_MIGRATE_DEADLINE",
-        "SERVING_MIGRATE_MAX_BYTES"}
+        "SERVING_MIGRATE_MAX_BYTES", "FLEET_MIN_TRAIN_SLOTS",
+        "FLEET_MIN_SERVE_SLOTS", "FLEET_WINDOW", "FLEET_COOLDOWN",
+        "FLEET_EBB_IDLE_S", "FLEET_TICK_S"}
     for name, knob in tenv.KNOBS.items():
         assert getattr(tenv, name) == name
         assert knob["default"] == jenv.KNOBS[name]["default"]
