@@ -3567,8 +3567,10 @@ def group_round_trip(resharding, zero, leaves, group, n, src_axis="hvd"):
     """``execute_group`` moves ``leaves`` from Replicated over ``n`` ranks
     (mesh axis ``src_axis``) to the ZeRO-1 flat layout over ``n`` ranks
     (axis "hvd") and back; returns the wire and placed bytes, seconds,
-    peak bytes of each way and whether the round trip gave every leaf back
-    bit for bit."""
+    peak bytes of each way, whether the round trip gave every leaf back
+    bit for bit, and the hvd-sim proof of both programs (``Program.prove``
+    at ``n`` symbolic ranks, run before either executes; a finding
+    fails)."""
     meta = resharding.tree_meta_of(leaves)
     plan = zero.plan_zero(leaves, n)
     src = resharding.replicated_spec(len(leaves), {src_axis: n})
@@ -3577,13 +3579,21 @@ def group_round_trip(resharding, zero, leaves, group, n, src_axis="hvd"):
     out = {}
     torch.cuda.synchronize()
     fwd = resharding.plan_redistribution(src, dst, meta)
+    back = resharding.plan_redistribution(dst, src, meta)
+    t0 = time.perf_counter()
+    found = fwd.prove(n) + back.prove(n)
+    out["prove"] = {"steps": len(fwd.steps) + len(back.steps),
+                    "world": max(2, n),
+                    "seconds": time.perf_counter() - t0}
+    if found:
+        fail("[sharded] hvd-sim refuted a redistribution program: "
+             + "; ".join(d.format() for d in found))
     bufs, rep = resharding.execute_group(
         fwd, lambda r, buf, a, n_: flat[buf[1]][a:a + n_], group=group)
     out["to_zero"] = {k: rep[k] for k in ("wire_bytes", "sent_bytes",
                                           "peak_bytes", "seconds")}
     out["to_zero"].update(strategy=fwd.strategy, steps=len(fwd.steps),
                           placed_bytes=sum(rep["bytes_by_leg"].values()))
-    back = resharding.plan_redistribution(dst, src, meta)
     again, rep = resharding.execute_group(
         back, lambda r, buf, a, n_: bufs[buf][a:a + n_], group=group)
     out["to_replicated"] = {k: rep[k] for k in ("wire_bytes", "sent_bytes",
@@ -3787,6 +3797,9 @@ def sharded_phase(fa, flush_buf):
             f"({r['placed_bytes'] / r['seconds'] / 1e9:.2f} GB/s), peak "
             f"{r['peak_bytes'] / 2 ** 30:.3f} GiB")
     log(f"[sharded] execute_group round trip bit-equal: {g['bit_equal']}")
+    log(f"[sharded] Program.prove (hvd-sim) of both programs before they "
+        f"ran: {g['prove']['steps']} steps at {g['prove']['world']} "
+        f"symbolic ranks, no finding, in {g['prove']['seconds']:.4f} s")
     log(f"[sharded] TwoDZero (1, 1), {TWOD_DIMS['d']} -> {TWOD_DIMS['f']}, "
         f"{TWOD_DIMS['tokens']} tokens, {tw['buckets']} buckets: losses "
         f"{tw['losses']} against AdamW's {tw['plain_losses']}; parameters "

@@ -5,8 +5,8 @@ This module IS the journal's state machine: ``runner/journal.py``
 imports and executes these functions. The functions and the durable-scope
 list are the JAX package's, so either package replays the other's journal
 directory to the same state and the same digest. Everything here is
-stdlib-pure (no I/O, no locks, no clock). The ``hvd-model`` checker that
-explores these functions comes with ROADMAP item 15.
+stdlib-pure (no I/O, no locks, no clock). The ``hvd-model`` checker
+(``machines.py``) explores these same functions.
 """
 
 import hashlib

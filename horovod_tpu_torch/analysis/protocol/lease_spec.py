@@ -4,8 +4,8 @@
 This module IS the lease state machine: ``fleet/ledger.py`` imports and
 executes these functions. The chains, the validation and the resume rules
 are the JAX package's, so a ledger written by either package's arbiter is
-resumed the same way by the other's. The ``hvd-model`` checker that
-explores these functions comes with ROADMAP item 15. Stdlib-pure — no
+resumed the same way by the other's. The ``hvd-model`` checker
+(``machines.py``) explores these same functions. Stdlib-pure — no
 backend, no clock, no journal.
 """
 

@@ -5,9 +5,9 @@ the admission fence in serving/kv_cache.py).
 This module IS the migration handshake's state machine:
 ``serving/migration.py`` chunk-packs and reassembles through these
 functions and ``kv_cache.PagePool`` admission-checks through
-:func:`admits` (spec-is-implementation; the JAX package's ``hvd-model``
-checker, ROADMAP item 15 for the port, replays the same functions under
-injected chunk loss, duplication, reorder, and restarts). Stdlib-pure —
+:func:`admits` (spec-is-implementation; the ``hvd-model`` checker,
+``machines.py``, replays the same functions under injected chunk loss,
+duplication, reorder, and restarts). Stdlib-pure —
 no sockets, no locks, no clock: time enters only as the explicit ``now``
 argument.
 """

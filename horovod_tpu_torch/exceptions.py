@@ -97,3 +97,16 @@ class ChaosInjectedError(RuntimeError):
     error type (``HVDTPU_CHAOS``; ``chaos/``). KV points raise transport
     errors and collective points raise ``HorovodInternalError`` instead,
     so recovery paths see exactly the exceptions real faults produce."""
+
+
+class CollectiveLintError(ValueError):
+    """Static analysis (hvd-lint) found error-severity collective hazards
+    and ``verify=`` asked for enforcement. ``self.diagnostics`` carries
+    the structured findings (analysis/diagnostics.py)."""
+
+    def __init__(self, diagnostics):
+        self.diagnostics = list(diagnostics)
+        lines = "\n".join(d.format() for d in self.diagnostics)
+        super().__init__(
+            f"hvd-lint found {len(self.diagnostics)} collective-"
+            f"correctness finding(s):\n{lines}")

@@ -7,8 +7,9 @@ and execute the resulting :class:`Program` in one process
 (:func:`make_jit_executor`), or over a group holding both cohorts
 (:func:`execute_group`, what a job of one process per GPU needs).
 Programs are chunked to ``HVDTPU_RESHARD_BUCKET_BYTES``, priced by the
-α–β cost model and carry guardian digests; ``Program.prove`` needs the
-symbolic simulator (ROADMAP item 15) and raises.
+α–β cost model and carry guardian digests; ``Program.prove`` checks a
+program deadlock-free and digest-consistent under the symbolic simulator
+(``analysis.simulate``).
 """
 
 from .spec import (Interval, Replicated, Sharded, Spec, ZeroFlat,

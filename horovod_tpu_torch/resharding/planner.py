@@ -28,10 +28,10 @@ executor sums per-holder windows into the destination).
 
 Every Program carries a :meth:`~Program.signature` (cross-rank
 identity, like ``ZeroPlan``) and guardian leg digests checked by
-:meth:`~Program.verify_consistency` through the guardian's board.
-The proof under the symbolic simulator (``Program.prove``,
-``sim_stream``, ``check_streams``) needs ``analysis.simulate``, which is
-not ported yet (ROADMAP item 15): those raise ``NotImplementedError``.
+:meth:`~Program.verify_consistency` through the guardian's board, and
+:meth:`~Program.prove` runs it through hvd-sim's lockstep matcher
+(``analysis.simulate``): deadlock-freedom (HVD501) and digest agreement
+(HVD502) at a symbolic world size, before any rank executes it.
 """
 
 import hashlib
@@ -44,14 +44,6 @@ from ..utils import envparse
 #: enough that scratch is negligible next to a shard, large enough
 #: that the α term doesn't dominate a transition.
 DEFAULT_RESHARD_BUCKET_BYTES = 4 * 1024 * 1024
-
-
-#: Why ``Program.prove``, ``sim_stream`` and ``check_streams`` raise.
-SIM_ERROR = (
-    "resharding: proving a program deadlock-free needs the symbolic "
-    "schedule simulator (analysis.simulate, hvd-sim), which is not ported "
-    "yet (ROADMAP item 15). verify_consistency() checks at run time that "
-    "every rank derived the same program.")
 
 
 class PlanError(ValueError):
@@ -105,6 +97,37 @@ class Step:
     def __repr__(self):
         return (f"Step({self.index}: {self.kind} "
                 f"{len(self.copies)} copies, {self.nbytes}B/rank)")
+
+
+class _ProgramEvent:
+    """A Step viewed through hvd-sim's SimEvent duck type: ``slice``
+    legs are local (``pset != 'global'`` completes immediately in the
+    lockstep matcher); comm legs negotiate on the step name."""
+
+    __slots__ = ("kind", "name", "pattern", "pset", "op", "file",
+                 "line")
+
+    def __init__(self, step):
+        self.kind = step.kind
+        self.name = step.name
+        self.pattern = None
+        self.pset = "local" if step.kind == "slice" else "global"
+        self.op = step.op
+        self.file = "<reshard-program>"
+        self.line = step.index
+
+    def slot(self):
+        if self.name is not None:
+            return ("n", self.name)
+        return ("u", self.kind)
+
+    def describe(self):
+        out = f"`{self.kind}`"
+        if self.name is not None:
+            out += f"(name={self.name!r})"
+        if self.op is not None:
+            out += f" op={self.op}"
+        return out
 
 
 class Program:
@@ -235,20 +258,46 @@ class Program:
 
     # -- hvd-sim proof -----------------------------------------------------
     def sim_stream(self):
-        """This program as one rank's hvd-sim event stream: needs the
-        symbolic simulator (``analysis.simulate``, ROADMAP item 15)."""
-        raise NotImplementedError(SIM_ERROR)
+        """This program as one rank's hvd-sim event stream."""
+        return [_ProgramEvent(s) for s in self.steps]
 
     def prove(self, world=None):
-        """The program through hvd-sim's lockstep matcher: needs
-        ``analysis.simulate`` (ROADMAP item 15)."""
-        raise NotImplementedError(SIM_ERROR)
+        """Run the program through hvd-sim's lockstep matcher
+        (``analysis.simulate._lockstep``) at ``world`` symbolic ranks:
+        returns ``[]`` when deadlock-freedom (HVD501) and digest
+        agreement (HVD502) hold, else the proven Diagnostics."""
+        if world is None:
+            world = max(self.src.world, self.dst.world)
+        world = max(2, int(world))
+        streams = {r: self.sim_stream() for r in range(world)}
+        return check_streams(streams)
 
 
 def check_streams(streams):
-    """Lockstep-match per-rank event streams (HVD501/HVD502): needs
-    ``analysis.simulate`` (ROADMAP item 15)."""
-    raise NotImplementedError(SIM_ERROR)
+    """Lockstep-match per-rank event streams; returns HVD501/HVD502
+    Diagnostics (the same rules the schedule simulator proves) or
+    ``[]``. Exposed separately so tests can corrupt a stream and watch
+    the checker catch it."""
+    from ..analysis.diagnostics import Diagnostic
+    from ..analysis.simulate import _lockstep
+    ranks = sorted(streams)
+    result = _lockstep(streams, ranks)
+    if result is None:
+        return []
+    blocked = {r: ev.describe() for r, ev in result["blocked"].items()}
+    if result["type"] == "deadlock":
+        return [Diagnostic.make(
+            "HVD501",
+            "redistribution program deadlocks: per-rank step "
+            f"sequences diverge at {blocked}",
+            file="<reshard-program>",
+            trace={"blocked": blocked})]
+    return [Diagnostic.make(
+        "HVD502",
+        f"redistribution program digest mismatch on "
+        f"{result['field']}: {blocked}",
+        file="<reshard-program>",
+        trace={"blocked": blocked, "field": result["field"]})]
 
 
 # ==========================================================================

@@ -53,7 +53,7 @@ import threading
 import time
 
 from . import metrics as _m
-from .kv_cache import PagePool, PageTable, PoolExhausted
+from .kv_cache import NoHeadroom, PagePool, PageTable, PoolExhausted
 
 #: recent step compositions kept for stats/debug (bounded).
 STEP_LOG = 256
@@ -406,7 +406,14 @@ class Scheduler:
         workers that shed to each other at once each wait on the other
         until the transfer times out; ROADMAP queue C.) The sequence
         joins the tables at the next step, ``stats()``, ``idle()`` or
-        ``migrate_all_out()``."""
+        ``migrate_all_out()``.
+
+        What imports hold is bounded: a hot record holds pages the pool
+        admitted (at most ``num_pages`` records), and a cold record is
+        refused with :class:`~.kv_cache.NoHeadroom` once ``queue_limit``
+        sequences wait for recompute admission, in the inbox and among the
+        preempted together (the source then tries its next peer, as for a
+        full pool)."""
         req = Request(f"{record['id']}~m{next(self._stamp)}",
                       record["prompt"], record["max_new_tokens"])
         generated = [int(t) for t in record.get("generated", ())]
@@ -427,7 +434,17 @@ class Scheduler:
         else:
             seq.state = PREEMPTED
         with self._inbox_lock:
-            self._inbox.append(seq)
+            # len() of the preempted table without the scheduler's lock:
+            # a step may change it meanwhile, which moves the bound by the
+            # sequences that step admits or preempts, never past it.
+            if table is None and len(self._preempted) + sum(
+                    s.table is None for s in self._inbox) \
+                    >= self.queue_limit:
+                raise NoHeadroom(
+                    f"{self.queue_limit} sequences already wait for "
+                    "recompute admission")
+            # Bounded (docstring): pages held, or the cold cap above.
+            self._inbox.append(seq)  # hvd-lint: disable=HVD210
             self.migrated_in += 1
         _m.migrations_total("imported").inc()
         return req.id, seq.result

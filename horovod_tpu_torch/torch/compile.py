@@ -342,13 +342,15 @@ def tpu_compile(module, input_names=None, example_inputs=None,
     as ``hvd.tpu_compile``. ``input_names`` and ``example_inputs`` are
     accepted and have no effect: they specialise the JAX package's fx trace,
     and on CUDA the module runs as it is, with nothing traced. ``verify``
-    (the hvd-lint analyzer of the traced program) is not ported.
+    (the hvd-lint analyzer of the traced program) is not ported; the
+    offline analyzer (``python -m horovod_tpu_torch.analysis.cli``) is.
     """
     del input_names, example_inputs
     if verify is not False:
         raise NotImplementedError(
-            "tpu_compile(verify=...): the collective-correctness analyzer "
-            "is not ported yet (ROADMAP queue A, item 15)")
+            "tpu_compile(verify=...): the traced-program collective "
+            "analyzer (the torch.fx counterpart of the JAX package's "
+            "jaxpr_lint) is not ported yet (ROADMAP queue A, item 15)")
     device = _device()
     # named_parameters() lists a tied tensor once, under its first name;
     # functional_call keeps the tie, so it stays one trainable leaf.

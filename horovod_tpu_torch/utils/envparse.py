@@ -288,6 +288,16 @@ COSTMODEL_TABLE = register(
     "Path to a calibrated cost-model table JSON (hvd-lint perf "
     "--calibrate --write-table); unset falls back to the built-in "
     "default table")
+PERF_TARGET_RANKS = register(
+    "PERF_TARGET_RANKS", "8,64,256,1024",
+    "Cohort sizes hvd-lint perf probes for predicted scaling curves "
+    "and the HVD603 scale-cliff rule")
+# The hvd-lint CLI (analysis/cli.py).
+LINT_BASELINE = register(
+    "LINT_BASELINE", "",
+    "Default --baseline file for hvd-lint: runs fail only on findings "
+    "not recorded there (analysis/baseline.py; keys are rule x file x "
+    "content-hash, so rebases don't resurface accepted findings)")
 
 # -- fault injection (chaos/) --------------------------------------------------
 CHAOS = register(

@@ -11,8 +11,11 @@ are too. A 4-rank gloo job (tests/torch_port_sharding_worker.py, mode
 the JAX package's ``make_jit_executor`` on 4 host devices and
 ``execute_host`` (bit-equal), mixed dtypes to the port's own
 ``execute_host``. ``Program.prove``, ``sim_stream`` and ``check_streams``
-raise, naming ROADMAP item 15.
+give the JAX package's verdicts: every program proves clean, a dropped
+comm step is HVD501 and a flipped kind HVD502 in both packages.
 """
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -222,12 +225,42 @@ def test_cost_model_matches_jax(kind, world):
     assert tcost.DEFAULT_TABLE == jcost.DEFAULT_TABLE
 
 
-def test_prove_and_sim_stream_name_item_15():
-    _, prog, _ = _programs("zero_to_rep")
-    for fn in (prog.prove, prog.sim_stream,
-               lambda: T.check_streams({0: []})):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            fn()
+def _events(stream):
+    return [(ev.kind, ev.name, ev.pset, ev.op, ev.line) for ev in stream]
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_prove_and_sim_stream_match_jax(name):
+    jprog, tprog, _ = _programs(name)
+    assert _events(tprog.sim_stream()) == _events(jprog.sim_stream())
+    for world in (None, 2, 5):
+        assert tprog.prove(world) == [] == jprog.prove(world)
+    if name == "local":
+        assert all(ev.pset == "local" for ev in tprog.sim_stream())
+
+
+def _corrupt(pkg, prog, how):
+    streams = {r: prog.sim_stream() for r in range(4)}
+    comm = [i for i, ev in enumerate(streams[2]) if ev.pset == "global"]
+    assert comm, "program has no comm step to corrupt"
+    if how == "drop":
+        del streams[2][comm[0]]
+    else:
+        ev = copy.copy(streams[2][comm[0]])
+        ev.kind = "alltoall" if ev.kind != "alltoall" else "allgather"
+        streams[2][comm[0]] = ev
+    return pkg.check_streams(streams)
+
+
+@pytest.mark.parametrize("how,rule", [("drop", "HVD501"),
+                                      ("flip", "HVD502")])
+@pytest.mark.parametrize("name", ["zero_to_rep", "2d", "pending"])
+def test_corrupted_streams_are_proven_like_jax(name, how, rule):
+    jprog, tprog, _ = _programs(name)
+    got, want = _corrupt(T, tprog, how), _corrupt(J, jprog, how)
+    assert [d.rule for d in got] == [d.rule for d in want] == [rule]
+    assert [(d.severity, d.message, d.trace) for d in got] == \
+        [(d.severity, d.message, d.trace) for d in want]
 
 
 class _Board(dict):

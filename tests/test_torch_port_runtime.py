@@ -42,7 +42,8 @@ def test_import_pulls_in_no_jax_and_no_horovod_tpu():
     assert bad == "[]"
     # The walk reached every module of the telemetry, tracing and serving
     # planes, the models' remat and the BERT model, the programmatic and
-    # cluster launch, the migration and lease specs, and the fleet plane.
+    # cluster launch, the migration and lease specs, the fleet plane, and
+    # the offline analyzer (hvd-lint, hvd-sim, explain, perf, hvd-model).
     for mod in ("telemetry.core", "telemetry.exposition",
                 "telemetry.aggregate", "telemetry.cli", "telemetry.spans",
                 "tracing", "tracing.recorder", "tracing.clock",
@@ -55,7 +56,12 @@ def test_import_pulls_in_no_jax_and_no_horovod_tpu():
                 "runner.task_exec", "analysis.protocol.migration_spec",
                 "analysis.protocol.lease_spec", "fleet", "fleet.ledger",
                 "fleet.policy", "fleet.metrics", "fleet.actuators",
-                "fleet.arbiter", "fleet.cli"):
+                "fleet.arbiter", "fleet.cli", "analysis.diagnostics",
+                "analysis.ast_lint", "analysis.schedule",
+                "analysis.simulate", "analysis.explain", "analysis.sarif",
+                "analysis.baseline", "analysis.cli", "analysis.costmodel",
+                "analysis.protocol.model", "analysis.protocol.machines",
+                "analysis.protocol.cli"):
         assert f"'horovod_tpu_torch.{mod}'" in imported, mod
 
 
@@ -210,7 +216,7 @@ def test_knobs_and_reduce_ops_match_the_jax_package():
         "AUTOTUNE_COMPRESSION_CANDIDATES",
         "AUTOTUNE_COMPRESSION_THRESHOLD_CANDIDATES",
         "AUTOTUNE_ZERO_BUCKET_CANDIDATES_MIB", "COSTMODEL",
-        "COSTMODEL_TABLE", "CHAOS", "CHAOS_LOG", "DRIVER_JOURNAL",
+        "COSTMODEL_TABLE", "PERF_TARGET_RANKS", "LINT_BASELINE", "CHAOS", "CHAOS_LOG", "DRIVER_JOURNAL",
         "DRIVER_JOURNAL_SNAPSHOT_EVERY", "DRIVER_STANDBY_ADDRS",
         "DRIVER_LEASE_INTERVAL", "DRIVER_LEASE_TIMEOUT", "DRIVER_PORT",
         "SERVING_MAX_BATCH_TOKENS", "SERVING_KV_PAGE_SIZE",

@@ -294,6 +294,38 @@ def test_an_import_does_not_wait_for_the_schedulers_lock():
         jmodel.ToyLM().reference_completion([4, 2], 6)
 
 
+def test_cold_imports_past_the_queue_limit_are_refused():
+    # What imports hold is bounded: a hot record holds pages the pool
+    # admitted, and cold ones (no pages) are refused with NoHeadroom once
+    # queue_limit sequences wait for recompute admission, in the inbox or
+    # drained into the preempted table, before anything is placed; a step
+    # that admits them makes room again.
+    from horovod_tpu_torch.serving import kv_cache as tkv
+    dst = tsched.Scheduler(tmodel.ToyLM(device=CPU), max_batch_tokens=16,
+                           queue_limit=2, num_pages=16, page_size=2)
+    cold = {"id": "c", "prompt": [4, 2], "max_new_tokens": 3,
+            "generated": [], "num_tokens": 0}
+    dst.import_remote(dict(cold))
+    dst.import_remote(dict(cold))
+    with pytest.raises(tkv.NoHeadroom):
+        dst.import_remote(dict(cold))
+    assert dst.migrated_in == 2 and len(dst._inbox) == 2
+    with dst._lock:
+        dst._take_inbox()
+    assert not dst._inbox and len(dst._preempted) == 2
+    with pytest.raises(tkv.NoHeadroom):
+        dst.import_remote(dict(cold))
+    assert dst.migrated_in == 2
+    dst.step()
+    assert not dst._preempted
+    assert not dst._inbox
+    _, result = dst.import_remote(dict(cold))
+    while not result.done.is_set():
+        dst.step()
+    assert result.tokens(timeout=1) == \
+        jmodel.ToyLM().reference_completion([4, 2], 3)
+
+
 # -- router and worker, in process --------------------------------------------
 
 class _DeadClient:
