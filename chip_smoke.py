@@ -36,6 +36,15 @@ paths at full width:
   plane's, 0 host waits, the [api] checks again, an alltoall's time, and
   that the timeline holds negotiated ``grad.*`` allreduces. A second child
   times the same steps without any timeline: the control plane's cost.
+- ``[sanitize]``: the runtime checkers on the flagship's path. A one-rank
+  launcher job on the NCCL-delegated plane, as ``[native]``'s
+  (``--sanitize-child``), with ``HVDTPU_SANITIZE=1`` and
+  ``HOROVOD_TPU_ORDER_CHECK=1`` (its record written at shutdown), trains
+  the full-width TransformerLM 5 steps and times 10 more on the host: no
+  finding, no ``LockOrderError``, a clean shutdown audit, the record equal
+  to the names in the order they were submitted, the losses bit-equal to
+  ``[native]``'s, 24 launches of each no-dropout kernel a step; the host
+  step beside ``[native]``'s untimelined one is the checkers' cost.
 - ``[elastic]``: the TransformerLM as an elastic job started by the port's
   own launcher (``python -m horovod_tpu_torch.runner.launch -np 1
   --min-np 1 --max-np 1 --host-discovery-script ...``) with this script's
@@ -132,6 +141,10 @@ paths at full width:
   child resumes from the checkpoint). Every stream equals the host oracle,
   the losses are held to ``[chaos]``'s control (1e-6 relative), and the
   ledger's split is read back from the journal.
+
+``[trace]`` also holds each traced gradient allreduce's sub→fin span to
+at least its NCCL device time (CUDA events around the collective on the
+backend's stream): a CUDA ``fin`` is stamped at completion.
 
 Every phase prints ``[time] <phase> <s>`` when it ends.
 For each path it times 10 more steps on the host (enqueue time, step time,
@@ -444,6 +457,22 @@ def time_ms(fn, reps, flush_buf, warm=True):
         events.append((start, end))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+def time_once(fn, flush_buf):
+    """``fn()`` once, cold, as ``time_ms(fn, 1, flush_buf, warm=False)``
+    times it: its result and its device ms. A plain version that takes
+    seconds gives the reference output and its time in one call."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    flush_buf.zero_()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def visible_pairs(s_q, s_k, q_off, k_off, kv_len, causal):
@@ -1561,6 +1590,130 @@ def native_child(out_path, bare=False):
                    "resnet_losses": r_losses, "resnet_ms": r_ms,
                    "transformer_host_ms": t_host, "resnet_host_ms": r_host,
                    "launches": launches, "alltoall_ms": a2a_ms}, f)
+
+
+# [sanitize]: the runtime checkers (analysis/sanitizer.py, the order guard
+# of analysis/order_guard.py) on in [native]'s one-rank job.
+SANITIZE_ENV = dict(HVDTPU_SANITIZE="1", HOROVOD_TPU_ORDER_CHECK="1")
+
+
+def sanitize_phase(native_res):
+    """Run ``--sanitize-child`` as rank 0 of a one-rank launcher job with
+    both checkers on. ``native_res``: [native]'s result (its losses and its
+    untimelined [host] step), or None to run the child once more with the
+    checkers off as the reference. Returns the kernels' launches."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="hvd-sanitize-") as tmp:
+        runs = {}
+        labels = ["checked"] + (["plain"] if native_res is None else [])
+        for label in labels:
+            out = os.path.join(tmp, f"{label}.json")
+            env = _one_rank_env()
+            if label == "checked":
+                env.update(SANITIZE_ENV, HOROVOD_TPU_ORDER_CHECK_RECORD=(
+                    os.path.join(tmp, "record.{rank}.json")))
+            else:
+                for k in SANITIZE_ENV:
+                    env.pop(k, None)
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__),
+                 "--sanitize-child", out], env=env, timeout=600)
+            if proc.returncode != 0:
+                fail(f"[sanitize] the {label} one-rank job exited "
+                     f"{proc.returncode}")
+            with open(out) as f:
+                runs[label] = json.load(f)
+    res = runs["checked"]
+    ref = native_res if native_res is not None else {
+        "transformer_losses": runs["plain"]["losses"],
+        "bare": {"transformer_host_ms": runs["plain"]["host_ms"]}}
+    ref_host = ref["bare"]["transformer_host_ms"]
+    log(f"[sanitize] HVDTPU_SANITIZE=1 HOROVOD_TPU_ORDER_CHECK=1, rank 0 of "
+        f"1 on {res['backend']}: locks {res['lock_types']}; losses "
+        f"{res['losses']} against [native]'s {ref['transformer_losses']}; "
+        f"findings {res['findings']}, shutdown audit {res['leaks']}; record "
+        f"of {len(res['record'])} submissions ({res['grads']} gradient "
+        f"allreduces), the submitted names in order: "
+        f"{res['record'] == res['submitted']}; launches {res['launches']}")
+    log(f"[sanitize] cost of the checkers: [host] step ms {res['host_ms']:.1f}"
+        f" against {ref_host:.1f} without them "
+        f"({res['host_ms'] - ref_host:+.1f} ms, "
+        f"{(res['host_ms'] - ref_host) / ref_host:+.1%})")
+    bad = []
+    if not res["enabled"] or not res["guard"]:
+        bad.append("the checkers were not on")
+    if res["findings"] or res["leaks"]:
+        bad.append(f"findings {res['findings']}, leaks {res['leaks']}")
+    if res["record"] != res["submitted"] or not res["grads"]:
+        bad.append("the order guard's record is not the submitted names")
+    if res["losses"] != ref["transformer_losses"]:
+        bad.append("the losses are not bit-equal to [native]'s")
+    want = dict.fromkeys(("fwd", "bwd_dkv", "bwd_dq"),
+                         TRAIN_STEPS * res["layers"])
+    if res["launches"] != want:
+        bad.append(f"launches {res['launches']}, expected {want}")
+    if res["syncs"]:
+        bad.append(f"{res['syncs']} calls made the host wait for the device")
+    if bad:
+        fail("[sanitize] " + "; ".join(bad))
+    return res["launches"]
+
+
+def sanitize_child(out_path):
+    """The child of ``sanitize_phase`` (``chip_smoke.py --sanitize-child
+    OUT``): [native]'s TransformerLM steps, then [host], with whatever
+    checkers the environment turns on. Writes the losses, launches, host
+    step, the sanitizer's findings and shutdown audit, and the order
+    guard's record beside the names submitted, in order."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from horovod_tpu_torch import native as hnative
+    os.environ["HVDTPU_PEERS"] = \
+        f"127.0.0.1:{hnative.reserve_listen_port()}"
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import basics, models
+    from horovod_tpu_torch.analysis import sanitizer
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.telemetry import core as telemetry
+    hvd.init()
+    rt = basics.runtime()
+    coord = rt.coordinator
+    if rt.mode != basics.MODE_SPMD or rt.backend.name != "nccl-global":
+        fail(f"[sanitize] expected a launcher job on the NCCL-delegated "
+             f"plane, got mode {rt.mode}, backend {rt.backend.name}")
+    submitted = []
+    submit = coord.submit
+
+    def logged(entry):
+        if entry.name:
+            submitted.append(entry.name)
+        return submit(entry)
+
+    coord.submit = logged
+    cfg, model, step, x, y = transformer_setup(hvd, models)
+    fa.reset_launches()
+    losses = [step(model, (x, y)).item() for _ in range(TRAIN_STEPS)]
+    launches = {n: fa.LAUNCHES[n] for n in ("fwd", "bwd_dkv", "bwd_dq")}
+    host_ms, syncs = host_phase(lambda: step(model, (x, y)),
+                                label="sanitize TransformerLM step")
+    res = {"losses": losses, "launches": launches, "layers": cfg.layers,
+           "host_ms": host_ms, "syncs": syncs, "backend": rt.backend.name,
+           "enabled": sanitizer.enabled(),
+           "guard": coord._order_guard is not None,
+           "lock_types": sorted({type(coord._lock).__name__,
+                                 type(telemetry.registry()._lock).__name__})}
+    record = os.environ.get("HOROVOD_TPU_ORDER_CHECK_RECORD")
+    hvd.shutdown()
+    res["findings"] = [f.format() for f in sanitizer.findings()]
+    res["leaks"] = sanitizer.audit_shutdown()
+    res["submitted"] = submitted
+    res["record"], res["grads"] = [], 0
+    if record:
+        with open(record.format(rank=0)) as f:
+            seq = json.load(f)["sequence"]
+        res["record"] = [e["name"] for e in seq]
+        res["grads"] = sum(e["kind"] == "allreduce" for e in seq)
+    with open(out_path, "w") as f:
+        json.dump(res, f)
 
 
 # [elastic]: the TransformerLM as an elastic job through the port's own
@@ -2883,7 +3036,7 @@ PIPE_GRAD_FRO = 2e-2
 PAR_MOE = dict(tokens=4096, d=1024, f=4096, e=8, k=2, capacity_factor=1.25)
 PAR_LM = dict(vocab_size=30522, hidden=1024, layers=24, heads=16,
               max_len=512)                # the TransformerLM, full depth
-PAR_REPS = 5
+PAR_REPS = 3
 
 
 def ring_schedule(fa, ring_local, q, k, v, n, causal=True):
@@ -3018,14 +3171,20 @@ def lse_kernel_rows(fa, flush_buf):
         args = (q, k, v, lens, scale, True)
         log(f"[parallel] LSE mode, {kind} chunk: bh={bh} s={s} d={d} bf16 "
             f"causal (q_off, k_off, kv_len)={lens}, g_lse ~ N(0, 1)")
+        # The plain versions run once each, timed as they give the
+        # reference (seconds a call at this shape).
+        plain_ms = {}
         o, lse = fa.attention_fwd(*args)
-        o_ref, lse_ref = fa.attention_fwd_plain(*args)
+        (o_ref, lse_ref), plain_ms["fwd"] = time_once(
+            lambda: fa.attention_fwd_plain(*args), flush_buf)
         delta = ((do.float() * o_ref.float()).sum(-1) - g_lse).contiguous()
         bargs = (q, k, v, do, lse_ref, delta, lens, scale, True)
         dk, dv = fa.attention_bwd_dkv(*bargs)
-        dk_ref, dv_ref = fa.attention_bwd_dkv_plain(*bargs)
+        (dk_ref, dv_ref), plain_ms["bwd_dkv"] = time_once(
+            lambda: fa.attention_bwd_dkv_plain(*bargs), flush_buf)
         dq = fa.attention_bwd_dq(*bargs)
-        dq_ref = fa.attention_bwd_dq_plain(*bargs)
+        dq_ref, plain_ms["bwd_dq"] = time_once(
+            lambda: fa.attention_bwd_dq_plain(*bargs), flush_buf)
         torch.cuda.synchronize()
         errs = {"fwd": compare("fwd O", o, o_ref, tol)}
         seen = lse_ref > fa.NEG_INF / 2
@@ -3049,16 +3208,11 @@ def lse_kernel_rows(fa, flush_buf):
         kern = {"fwd": lambda: fa.attention_fwd(*args),
                 "bwd_dkv": lambda: fa.attention_bwd_dkv(*bargs),
                 "bwd_dq": lambda: fa.attention_bwd_dq(*bargs)}
-        plain = {"fwd": lambda: fa.attention_fwd_plain(*args),
-                 "bwd_dkv": lambda: fa.attention_bwd_dkv_plain(*bargs),
-                 "bwd_dq": lambda: fa.attention_bwd_dq_plain(*bargs)}
         for base in ("fwd", "bwd_dkv", "bwd_dq"):
             b_ms, b_by = bound(base, bh, s, s, d, pairs, 2)
             r = {"max_abs_err": errs[base],
                  "ms": time_ms(kern[base], 20, flush_buf),
-                 "plain_ms": (time_ms(plain[base], 1, flush_buf,
-                                      warm=False)
-                              if kind != "future" else None),
+                 "plain_ms": plain_ms[base] if kind != "future" else None,
                  "bound_ms": b_ms, "bound_by": b_by,
                  "library_ms": lib[base]}
             plain_s = "-" if r["plain_ms"] is None else \
@@ -4085,6 +4239,48 @@ TRACE_COST_STEPS = 6
 TRACE_VARIANTS = (("0", "0"), ("0", "1"), ("1", "0"), ("1", "1"))
 
 
+def time_nccl_responses(backend):
+    """Wrap the NCCL plane's allreduce execution with CUDA events on the
+    backend's stream: ``[([(entry name, occurrence)], start, end)]``.
+    Only for the span check; ``del backend._delegated_allreduce`` undoes
+    it."""
+    timed = []
+    run = backend._delegated_allreduce
+
+    def wrapped(d, group, ranks, dtype, local):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(backend._stream)
+        nbytes = run(d, group, ranks, dtype, local)
+        end.record(backend._stream)
+        timed.append(([(item[0].name, item[0].corr) for item in local
+                       if item is not None], start, end))
+        return nbytes
+
+    backend._delegated_allreduce = wrapped
+    return timed
+
+
+def span_check(spans, responses):
+    """Each traced allreduce's sub→fin span (s) against the NCCL device
+    time of its response (ms): (entries checked, those shorter, median
+    span ms, median device ms)."""
+    checked, short, span_ms, dev_ms = 0, [], [], []
+    for keys, ms in responses:
+        for name, occ in keys:
+            sp = spans.get((name, occ))
+            if sp is None or sp["sub"] is None or sp["fin"] is None:
+                short.append((name, occ, None, ms))
+                continue
+            checked += 1
+            span_ms.append((sp["fin"] - sp["sub"]) * 1e3)
+            dev_ms.append(ms)
+            if span_ms[-1] < ms:
+                short.append((name, occ, span_ms[-1], ms))
+    return (checked, short, _median(span_ms) if span_ms else None,
+            _median(dev_ms) if dev_ms else None)
+
+
 def trace_child(out_path):
     """The child of ``trace_phase`` (``chip_smoke.py --trace-child OUT``):
     rank 0 of a one-rank job on the NCCL-delegated plane that found its
@@ -4108,6 +4304,7 @@ def trace_child(out_path):
     cfg, model, step, x, y = transformer_setup(hvd, models)
     res = {"losses": [], "ms": [], "launches": []}
     fa.reset_launches()
+    timed = time_nccl_responses(rt.backend)
     for _ in range(TRACE_STEPS):
         before = dict(fa.LAUNCHES)
         t0 = time.perf_counter()
@@ -4116,6 +4313,10 @@ def trace_child(out_path):
         res["launches"].append({n: fa.LAUNCHES[n] - before.get(n, 0)
                                 for n in fa.LAUNCHES
                                 if fa.LAUNCHES[n] - before.get(n, 0)})
+    del rt.backend._delegated_allreduce
+    torch.cuda.synchronize()
+    res["responses"] = [[keys, start.elapsed_time(end)]
+                        for keys, start, end in timed]
     traced = coord._tracer
     trace_dir = os.environ["HVDTPU_TRACE_DIR"]
     cost = {f"TRACE={t} FLIGHT_RECORDER={f}": [] for t, f in TRACE_VARIANTS}
@@ -4168,6 +4369,11 @@ def trace_verdict(res, shards, trace, report, metrics_text):
         if unpaired or errs:
             bad.append(f"spans without sub/fin {unpaired[:5]}, failed "
                        f"{errs[:5]}")
+        # A CUDA fin is stamped when the card finished the collective.
+        checked, short, _, _ = span_check(spans, res["responses"])
+        if not checked or short:
+            bad.append(f"{len(short)} of {checked} gradient allreduce spans "
+                       f"shorter than their NCCL device time: {short[:5]}")
     tracks = {e["args"]["name"] for e in trace["traceEvents"]
               if e["ph"] == "M"}
     if "rank 0" not in tracks:
@@ -4265,6 +4471,13 @@ def trace_phase():
             f"last completion, critical path {len(st['critical_path'])} "
             f"collectives ({st['critical_comm_s'] * 1e3:.2f} ms in flight, "
             f"{st['critical_gap_s'] * 1e3:.2f} ms between)")
+    checked, short, span_ms, dev_ms = span_check(
+        merge.collective_spans(shards[0]) if shards else {},
+        res["responses"])
+    log(f"[trace] sub→fin spans against NCCL device time: {checked} traced "
+        f"allreduces in {len(res['responses'])} responses, median span "
+        f"{span_ms} ms against median device time {dev_ms} ms; shorter: "
+        f"{len(short)}")
     log(f"[trace] the launcher's /metrics: "
         f"{len(metrics_text.splitlines())} lines; metrics_snapshot() names "
         f"{len(res['families'])} families")
@@ -5024,9 +5237,13 @@ def _serving_post(port, path, payload, token, timeout=300):
         return e.code, (json.loads(raw) if raw else {})
 
 
-def _serving_burst(port, token, reqs, prefix):
-    """``reqs`` sent at once to ``port``'s ``/v1/generate``, one thread
-    each: ``[(status, body, seconds)]`` in request order."""
+def _serving_burst(port, token, reqs, prefix, queued=None):
+    """``reqs`` sent to ``port``'s ``/v1/generate``, one thread each:
+    ``[(status, body, seconds)]`` in request order. With ``queued`` (the
+    requests the workers hold queued), each thread starts once the one
+    before it is queued: the router's round robin and each worker's queue
+    then take the burst in request order, so a burst queued before the
+    loops start runs the same way every time."""
     import threading
     out = [None] * len(reqs)
 
@@ -5039,7 +5256,13 @@ def _serving_burst(port, token, reqs, prefix):
 
     threads = [threading.Thread(target=send, args=(i, p, n))
                for i, (p, n) in enumerate(reqs)]
-    for t in threads:
+    for i, t in enumerate(threads):
+        deadline = time.monotonic() + 60
+        while queued is not None and queued() < i:
+            if time.monotonic() > deadline:
+                fail(f"[serving] {prefix}: request {i - 1} was never "
+                     "queued")
+            time.sleep(0.001)
         t.start()
     for t in threads:
         t.join(timeout=600)
@@ -5131,11 +5354,17 @@ def serving_phase(models):
             warnings.showwarning = count_syncs
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                # The burst arrives at once: the workers' loops start when
-                # all of it is queued, so the pool is pressed every run.
+                # The burst is queued in request order before the workers'
+                # loops start, so it runs the same way every run and
+                # presses the pool (sent all at once, the arrival order
+                # decided the split, and some runs on the card never
+                # preempted or migrated).
                 out = {}
                 sender = threading.Thread(target=lambda: out.update(
-                    res=_serving_burst(rport, token, reqs, "burst")))
+                    res=_serving_burst(rport, token, reqs, "burst",
+                                       queued=lambda: sum(
+                                           w.scheduler.stats()["queue_depth"]
+                                           for w in workers))))
                 sender.start()
                 deadline = time.monotonic() + 120
                 while sum(w.scheduler.stats()["queue_depth"]
@@ -5791,6 +6020,10 @@ def main():
     log("[launches] [native] " + ", ".join(
         f"{n}={c}" for n, c in native_launches.items()))
     t = phase_done("native", t)
+    sanitize_launches = sanitize_phase(native_res)
+    log("[launches] [sanitize] " + ", ".join(
+        f"{n}={c}" for n, c in sanitize_launches.items()))
+    t = phase_done("sanitize", t)
     elastic_launches = elastic_phase(train_losses, train_ms, native_ms)
     log("[launches] [elastic] " + ", ".join(
         f"{n}={c}" for n, c in elastic_launches.items()))
@@ -5880,6 +6113,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--native-child"]:
         native_child(sys.argv[2], bare=sys.argv[3:4] == ["bare"])
+    elif sys.argv[1:2] == ["--sanitize-child"]:
+        sanitize_child(sys.argv[2])
     elif sys.argv[1:2] == ["--elastic-child"]:
         elastic_child(sys.argv[2])
     elif sys.argv[1:2] == ["--compress-child"]:

@@ -151,8 +151,9 @@ def core_path(test=False):
 
 def build_core(test=False):
     """Build the native core library (or its ``test_core`` binary) if it is
-    missing, with one ``g++`` process; returns its path. Raises
-    RuntimeError if g++ is missing or fails."""
+    missing: one ``g++ -c`` per source, all started together, then one
+    link; returns its path. Raises RuntimeError if g++ is missing or
+    fails."""
     out = core_path(test)
     if out.exists():
         return out
@@ -166,13 +167,31 @@ def build_core(test=False):
         if out.exists():   # built by another process meanwhile
             return out
         tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
-        cmd = [cxx, *CXX_FLAGS, *(() if test else ("-shared",)), "-o",
-               str(tmp), *map(str, _core_sources(test))]
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"g++ failed building {out.name}:\n"
-                               f"{proc.stdout}")
+        objs = BUILD_DIR / f"{out.name}.{os.getpid()}.obj"
+        objs.mkdir()
+        try:
+            compiles = [
+                subprocess.Popen(
+                    [cxx, *CXX_FLAGS, "-c", str(src), "-o",
+                     str(objs / f"{src.stem}.o")],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+                for src in _core_sources(test)]
+            logs = [(p, p.communicate()[0]) for p in compiles]
+            failed = [text for p, text in logs if p.returncode != 0]
+            if not failed:
+                link = subprocess.run(
+                    [cxx, *CXX_FLAGS, *(() if test else ("-shared",)), "-o",
+                     str(tmp), *sorted(map(str, objs.glob("*.o")))],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+                if link.returncode != 0:
+                    failed = [link.stdout]
+            if failed:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"g++ failed building {out.name}:\n"
+                                   + "\n".join(failed))
+        finally:
+            shutil.rmtree(objs, ignore_errors=True)
         os.replace(tmp, out)   # atomic: a reader never sees half a file
     return out

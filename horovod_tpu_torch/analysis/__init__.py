@@ -23,12 +23,16 @@ One finding type (:class:`Diagnostic`) across the layers:
    control-plane spec modules the HA journal, fleet ledger, and
    KV-migration runtimes execute, plus the explicit-state explorer
    (HVD7xx).
+5. **runtime order guard** (:class:`SubmissionOrderGuard`) — the opt-in
+   ``HOROVOD_TPU_ORDER_CHECK=1`` dynamic backstop in the coordinator.
+6. **runtime concurrency sanitizer** (``sanitizer``) — the opt-in
+   ``HVDTPU_SANITIZE=1`` lock-order/liveness instrumentation behind the
+   HVD3xx thread-safety rules.
 
 The CLI is ``python -m horovod_tpu_torch.analysis.cli`` (``hvd-model``:
 ``python -m horovod_tpu_torch.analysis.protocol.cli``). Not ported yet:
 the traced-program analyzer behind ``verify=`` (the JAX package's
-jaxpr layer; :func:`verify_traceable` raises), the runtime order guard
-and the runtime sanitizer.
+jaxpr layer; :func:`verify_traceable` raises).
 
 Public names resolve lazily (PEP 562): the control-plane runtime
 imports the ``analysis.protocol`` spec modules on its hot import path,
@@ -58,11 +62,12 @@ _LAZY_NAMES = {
     "to_sarif": "sarif", "write_sarif": "sarif",
     "filter_new": "baseline", "load_baseline": "baseline",
     "write_baseline": "baseline",
+    "SubmissionOrderGuard": "order_guard",
 }
 
 _LAZY_MODULES = frozenset({
-    "ast_lint", "baseline", "cli", "costmodel", "explain", "protocol",
-    "sarif", "schedule", "simulate",
+    "ast_lint", "baseline", "cli", "costmodel", "explain", "order_guard",
+    "protocol", "sanitizer", "sarif", "schedule", "simulate",
 })
 
 def __getattr__(name):

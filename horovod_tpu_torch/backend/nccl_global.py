@@ -33,6 +33,12 @@ what the controller negotiated).
   catch-all wire rule: a float sum of at least the threshold is quantized,
   without error feedback. A stamp needs every rank's entry: a response
   with a joined rank's slot and a stamped entry raises.
+- On CUDA every response records a timing event after its collective
+  on the backend's stream. Its entries' handles complete at once (a
+  waiter's stream waits on the card), but their trace ``fin`` is the time
+  that event ran on the card (``TensorEntry.device_done``, read against
+  the stream's ``tracing.DeviceClock`` once the coordinator's sweep finds
+  it completed), so a sub→fin span holds NCCL's time.
 - With the watchdog armed (``HVDTPU_COLLECTIVE_TIMEOUT``), a response
   handed to NCCL stays in view (``device_inflight``) until the card
   finished it, and a watchdog abort aborts this rank's communicators, so
@@ -199,6 +205,12 @@ class NcclGlobalBackend(TcpBackend):
         self._staged = []     # alltoalls on their way to the host
         self._stream = (torch.cuda.Stream(device) if device.type == "cuda"
                         else None)
+        # Wall time of the stream's events (the trace fins), anchored
+        # here while the stream is idle.
+        self.device_clock = None
+        if self._stream is not None:
+            from ..tracing.recorder import DeviceClock
+            self.device_clock = DeviceClock(self._stream)
         self.runtime = None   # set by the coordinator (timeline)
         # Counters: responses executed, their payload bytes, and the bytes
         # copied into and out of fusion buffers.
@@ -449,6 +461,12 @@ class NcclGlobalBackend(TcpBackend):
             self._abort_communicators("watchdog abort", strict=True)
         super().unblock(exc)
 
+    def device_aborted(self):
+        """True once this rank's communicators were aborted or the
+        watchdog released its work: pending trace ``fin``s are then
+        recorded failed without waiting for the card."""
+        return self._aborted or self._abort_exc is not None
+
     def device_inflight(self, now):
         """``(native name, age)`` of every response handed to NCCL whose
         event has not completed (with ``track_device``); responses complete
@@ -534,10 +552,16 @@ class NcclGlobalBackend(TcpBackend):
         with self._on_stream(local):
             run = getattr(self, "_delegated_" + kind)
             nbytes = run(d, group, ranks, dtype, local)
-            if self.track_device and self._stream is not None:
-                event = torch.cuda.Event()
-                event.record(self._stream)
-                self._device_work.append((names, time.monotonic(), event))
+            if self._stream is not None:
+                # The response's completion on the card: its entries'
+                # trace fin and, under the watchdog, device_inflight.
+                event = self.device_clock.event(self._stream)
+                for item in local:
+                    if item is not None:
+                        item[0].device_done = (event, self.device_clock)
+                if self.track_device:
+                    self._device_work.append((names, time.monotonic(),
+                                              event))
         for h in d["handles"]:
             if h >= 0:
                 self.core.delegated_complete(h)

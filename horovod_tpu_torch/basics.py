@@ -273,6 +273,10 @@ def shutdown():
         _runtime._shutdown = True
         _runtime = None
         LAST_TIMES["shutdown"]["total"] = (time.perf_counter() - t0) * 1e3
+        # hvd-sanitize thread-leak audit (a no-op when HVDTPU_SANITIZE is
+        # off): name every non-daemon thread that survived teardown.
+        from .analysis import sanitizer
+        sanitizer.audit_shutdown()
 
 
 def _maybe_dump_metrics():

@@ -32,9 +32,8 @@ The spec grammar, points and actions are the JAX package's, so one
 ``HVDTPU_CHAOS`` parses the same in both packages, and every point fires
 at its site: the fleet plane's ``transfer`` (fleet/arbiter.py, after each
 lease transition's ledger write) and ``drain`` (fleet/actuators.py), the
-serving plane's ``migrate_out`` and ``migrate_in``.
-Not ported: the ``delay`` action's exemption from the sanitizer's blocking
-tripwire (the sanitizer is item 15); the port just sleeps.
+serving plane's ``migrate_out`` and ``migrate_in``. An injected ``delay``
+is exempt from the sanitizer's blocking tripwire.
 """
 
 import os
@@ -214,7 +213,12 @@ def _failure_for(rule, point):
 def _execute(rule, point):
     action = rule.action
     if action == "delay":
-        time.sleep((rule.ms if rule.ms is not None else 100) / 1000.0)
+        # Injected on purpose: exempt from the hvd-sanitize blocking
+        # tripwire, so that a chaos run with HVDTPU_SANITIZE=1 stays quiet.
+        from ..analysis import sanitizer
+        with sanitizer.allowed("chaos delay injection"):
+            time.sleep((rule.ms if rule.ms is not None else 100)
+                       / 1000.0)
     elif action == "fail":
         raise _failure_for(rule, point)
     elif action == "hang":

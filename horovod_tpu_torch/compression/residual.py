@@ -12,8 +12,8 @@ old one's, so a residual never crosses cohorts. They live in float32 on
 the gradient's device, one extra copy of each compressed tensor.
 """
 
-import threading
 
+from ..analysis import sanitizer
 from ..utils import envparse
 from ..utils.logging_util import get_logger
 
@@ -23,7 +23,7 @@ class ResidualStore:
     tensors)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("compression.residuals")
         self._store = {}
         self._version = self._current_version()
         self._log = get_logger()

@@ -31,6 +31,8 @@ import time
 import torch
 
 from . import chaos
+from .analysis import sanitizer
+from .analysis.order_guard import GUARD_PREFIX
 from .exceptions import DuplicateNameError, HorovodInternalError
 from .telemetry import core as telemetry
 from .telemetry import span as tele_span
@@ -49,6 +51,11 @@ DEFAULT_STALL_WARN_S = 60.0
 # negotiate meanwhile wait for it only for ops this rank has not
 # submitted, which a submission ends at once.
 IDLE_CYCLE_S = 0.05
+# At shutdown, the longest wait for the card to finish the collectives
+# whose trace ``fin`` is still pending.
+FIN_DRAIN_S = 5.0
+# Seconds between the cross-rank submission-order checks (ORDER_CHECK).
+DEFAULT_ORDER_CHECK_INTERVAL_S = 5.0
 
 
 def _tensors_of(result):
@@ -91,6 +98,10 @@ class Handle:
     def wait(self, timeout=None):
         """The result. On CUDA tensors the caller's current stream is made
         to wait for the operation; the host does not wait for the card."""
+        # hvd-sanitize tripwire: a wait on the cycle or watchdog thread
+        # would starve every other in-flight collective (one global read
+        # when HVDTPU_SANITIZE is off).
+        sanitizer.check_blocking("Handle.wait", self.name or "")
         if not self._event.wait(timeout):
             age = ("" if self.enqueue_time is None else
                    f"; in flight {time.monotonic() - self.enqueue_time:.1f}s"
@@ -135,7 +146,8 @@ class TensorEntry:
     __slots__ = ("name", "kind", "tensors", "op", "root_rank", "splits",
                  "prescale", "postscale", "process_set", "handle",
                  "enqueue_time", "ready", "device", "site", "codec",
-                 "uneven", "guard_token", "corr", "chaos_mismatch")
+                 "uneven", "guard_token", "corr", "chaos_mismatch",
+                 "device_done")
 
     def __init__(self, name, kind, tensors, process_set, op=None,
                  root_rank=None, splits=None, prescale=None, postscale=None,
@@ -170,6 +182,9 @@ class TensorEntry:
         # Chaos 'collective:mismatch': the guardian publishes a corrupted
         # digest for this submission.
         self.chaos_mismatch = False
+        # A CUDA collective's (done event, tracing.DeviceClock), set when
+        # it was issued: its trace ``fin`` waits for that event.
+        self.device_done = None
         self.device = tensors[0].device if tensors else None
         self.ready = None
         if self.device is not None and self.device.type == "cuda":
@@ -208,11 +223,12 @@ class Coordinator:
         # (process_set_id, name) -> [enqueue_time, callsite] for every
         # in-flight named op: duplicate detection and the stall scan.
         self._pending_names = {}
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("coordinator.queue")
         self._wakeup = threading.Event()
         self._running = False
         self._thread = None
         self._stream = None   # the Python plane's CUDA stream
+        self._clock = None    # its tracing.DeviceClock (tracer on)
         self._log = get_logger()
         self.cycles = 0
         self.busy_s = 0.0     # the native loop's time outside its waits
@@ -322,6 +338,21 @@ class Coordinator:
         # Chaos 'collective' point (HVDTPU_CHAOS): cached, so that the
         # disabled path costs one attribute check per submission.
         self._chaos_on = chaos.enabled()
+        # Opt-in submission-order guard (HOROVOD_TPU_ORDER_CHECK=1). None
+        # when disabled: the hot path pays one attribute check and
+        # allocates nothing (analysis/order_guard.py).
+        self._order_guard = None
+        self._order_error = None
+        self._order_thread = None
+        self._order_record_path = None
+        if envparse.get_bool(envparse.ORDER_CHECK):
+            from .analysis.order_guard import SubmissionOrderGuard
+            self._order_record_path = (
+                envparse.get_str(envparse.ORDER_CHECK_RECORD) or None)
+            spmd = getattr(runtime, "mode", None) == "spmd"
+            self._order_guard = SubmissionOrderGuard(
+                rank=runtime.topology.rank,
+                record=(not spmd) or bool(self._order_record_path))
 
     # -- lifecycle ---------------------------------------------------------
     def start(self):
@@ -347,6 +378,13 @@ class Coordinator:
                     target=self._watch_loop, name="hvd-torch-watchdog",
                     daemon=True)
                 self._watch_thread.start()
+        if (self._order_guard is not None
+                and getattr(self.runtime, "mode", None) == "spmd"
+                and self.runtime.topology.size > 1):
+            self._order_thread = threading.Thread(
+                target=self._order_check_loop,
+                name="hvd-torch-order-check", daemon=True)
+            self._order_thread.start()
 
     def stop(self):
         with self._lock:
@@ -359,6 +397,22 @@ class Coordinator:
         self._thread.join(timeout=10)
         if self._watch_thread is not None:
             self._watch_thread.join(timeout=10)
+        if self._order_thread is not None:
+            self._order_thread.join(timeout=10)
+        if (self._order_guard is not None
+                and self._order_record_path is not None):
+            try:
+                path = self._order_guard.dump(self._order_record_path)
+                self._log.info("submission-order record written to %s",
+                               path)
+            except OSError as exc:
+                self._log.warning("could not write ORDER_CHECK record: %s",
+                                  exc)
+        if self._tracer is not None:
+            if self._device_aborted():
+                self._tracer.fail_device()
+            else:
+                self._tracer.drain_device(FIN_DRAIN_S)
         with self._lock:
             stranded = self._queue + self._chaos_stalled
             self._queue = []
@@ -408,18 +462,26 @@ class Coordinator:
         key = (entry.process_set.process_set_id, entry.name)
         if entry.name and entry.site is None:
             entry.site = format_user_frame(skip=3)
+        guard = self._order_guard
         with self._lock:
             if self._broken is not None:
                 raise self._broken
             if not self._running:
                 raise HorovodInternalError(
                     "Coordinator is shut down; cannot submit operations")
+            if guard is not None and self._order_error is not None:
+                raise self._order_error
             if entry.name and key in self._pending_names:
                 raise self._duplicate_error(entry, key)
             if entry.name:
                 self._pending_names[key] = [entry.enqueue_time, entry.site]
             self._queue.append(entry)
             self.submitted += 1
+            if (guard is not None and entry.name
+                    and not entry.name.startswith(GUARD_PREFIX)):
+                # Inside the lock, so that the digest stream is the queue's
+                # order even with concurrent submitting threads.
+                guard.record(entry.name, entry.kind, callsite=entry.site)
         self._wakeup.set()
         return entry.handle
 
@@ -460,21 +522,62 @@ class Coordinator:
         (``ok=False`` on failure paths, so that merged traces and
         postmortems flag the failed collective). A response the native
         core fused completes each of its entries here: every entry keeps
-        its own span, from its submission to the sweep that found the
-        response done, so the entries of one response share their end."""
+        its own span, from its submission to the response's completion,
+        so the entries of one response share their end."""
         self._release_name(entry)
-        if self._tracer is not None:
-            self._tracer.on_complete(entry, ok=ok)
+        self._trace_done(entry, ok)
+
+    def _trace_done(self, entry, ok=True):
+        """Record an entry's trace completion. A CUDA collective's ``fin``
+        is the time its done event ran on the card, recorded once the
+        event has completed (``Tracer.defer_complete``, polled by the
+        cycle thread); a failure and a host-plane operation are stamped
+        now. The handle itself completed at enqueue: only the record
+        waits."""
+        tracer = self._tracer
+        if tracer is None:
+            return
+        if ok and entry.device_done is not None:
+            tracer.defer_complete(entry, *entry.device_done)
+        else:
+            tracer.on_complete(entry, ok=ok)
+
+    def _device_aborted(self):
+        aborted = getattr(self.runtime.backend, "device_aborted", None)
+        return aborted is not None and aborted()
+
+    def _poll_device_fins(self):
+        """The cycle thread's sweep of the deferred ``fin``s: recorded
+        with ``err`` 1 at once when the backend aborted, else those whose
+        event has completed."""
+        if self._device_aborted():
+            self._tracer.fail_device()
+        else:
+            self._tracer.poll_device()
 
     # -- background cycle --------------------------------------------------
     def _loop(self):
-        dev = self.runtime.device
-        if dev.type != "cuda":
-            self._run_loop()
-            return
-        with torch.cuda.device(dev):
-            self._stream = torch.cuda.Stream(dev)
-            self._run_loop()
+        # The cycle thread paces the whole data plane, so any blocking
+        # call on it is a finding for the sanitize tripwire. Unmarked on
+        # exit: thread idents are recycled, and a stale entry would mark
+        # an unrelated later thread critical across elastic restarts.
+        sanitizer.mark_critical("coordinator-cycle")
+        try:
+            dev = self.runtime.device
+            if dev.type != "cuda":
+                self._run_loop()
+                return
+            with torch.cuda.device(dev):
+                self._stream = torch.cuda.Stream(dev)
+                if self._tracer is not None and not getattr(
+                        self.runtime.backend, "drives_own_cycle", False):
+                    # The Python plane's fins (a launcher job's backend
+                    # times its own stream).
+                    from .tracing.recorder import DeviceClock
+                    self._clock = DeviceClock(self._stream)
+                self._run_loop()
+        finally:
+            sanitizer.unmark_critical()
 
     def _run_loop(self):
         backend = self.runtime.backend
@@ -488,6 +591,8 @@ class Coordinator:
                 break
             time.sleep(self.cycle_time_s)
             self._run_cycle()
+            if self._tracer is not None and self._tracer.device_pending():
+                self._poll_device_fins()
             if self.stall_warn_s > 0 or self._watchdog is not None:
                 self._check_stalls()
 
@@ -535,6 +640,9 @@ class Coordinator:
                 self._in_cycle_since = time.monotonic()
                 processed = backend.run_cycle()
                 self._in_cycle_since = None
+                if self._tracer is not None and \
+                        self._tracer.device_pending():
+                    self._poll_device_fins()
                 with self._lock:
                     diagnostic, self._abort_request = \
                         self._abort_request, None
@@ -570,11 +678,65 @@ class Coordinator:
 
     def _watch_loop(self):
         """The watchdog's thread (launcher jobs): the stall scan, off the
-        cycle thread."""
+        cycle thread. It carries the JAX package's cycle-thread role of
+        running the watchdog scans, and it must never block (it aborts
+        NCCL), so it is critical for the sanitize tripwire too."""
+        sanitizer.mark_critical("coordinator-watchdog")
+        try:
+            while self._running:
+                # Scan pacing: a bounded sleep, not a blocking call.
+                with sanitizer.allowed("watchdog scan pacing (bounded)"):
+                    time.sleep(0.25)   # the shortest scan period
+                if self._running:
+                    self._check_stalls()
+        finally:
+            sanitizer.unmark_critical()
+
+    def _order_check_loop(self):
+        """Cross-rank check of the submission-order digests (launcher
+        jobs): allgather each rank's recent checkpoint digests and compare
+        them at a common submission index (analysis/order_guard.py). The
+        payload is a uint8 tensor on the rank's device (the NCCL plane's
+        card, the CPU under gloo and tcp-native). On a thread of its own,
+        so that the allgather never stalls the cycle thread; each rank's
+        rounds run on its own clock, and the allgather of a round
+        realigns them."""
+        import numpy as np
+
+        from .exceptions import SubmissionOrderError
+        from .ops import collectives
+        interval = max(0.2, envparse.get_float(
+            envparse.ORDER_CHECK_INTERVAL, DEFAULT_ORDER_CHECK_INTERVAL_S))
+        size = self.runtime.topology.size
+        round_no = 0
+        waited = 0.0
         while self._running:
-            time.sleep(0.25)   # the shortest scan period
-            if self._running:
-                self._check_stalls()
+            time.sleep(0.2)
+            waited += 0.2
+            if waited < interval or not self._running:
+                continue
+            waited = 0.0
+            round_no += 1
+            try:
+                payload = torch.from_numpy(
+                    self._order_guard.sync_payload()).to(self.runtime.device)
+                handle = collectives.allgather_async(
+                    payload, name=f"{GUARD_PREFIX}order_check.{round_no}")
+                # A peer that stopped never joins this round: stop waiting
+                # with the coordinator.
+                while not handle.poll():
+                    if not self._running:
+                        return
+                    time.sleep(0.01)
+                gathered = handle.wait().cpu().numpy()
+                self._order_guard.verify(np.asarray(gathered), size)
+            except SubmissionOrderError as exc:
+                self._order_error = exc
+                self._log.error("%s", exc)
+                return
+            except Exception as exc:  # noqa: BLE001 - an advisory check
+                if self._running:
+                    self._log.debug("order check round skipped: %s", exc)
 
     def _request_abort(self, diagnostic):
         """Abort on the cycle thread, which owns the backend; from the
@@ -622,7 +784,10 @@ class Coordinator:
             inflight = [key[1] for key in self._pending_names if key[1]]
             for key, info in self._pending_names.items():
                 age = now - info[0]
-                if age > self._stall_observe_s:
+                if age > self._stall_observe_s and \
+                        not key[1].startswith(GUARD_PREFIX):
+                    # The order guard's rounds wait in negotiation for
+                    # the peers' timers, not on a stuck peer.
                     stalled.append((key[1], age, info[1]))
             for e in self._chaos_stalled:
                 age = now - e.enqueue_time
@@ -702,6 +867,9 @@ class Coordinator:
         self._log.error("%s", diagnostic)
         self._m_aborts.inc()
         if self._tracer is not None:
+            # The collectives already on the card end with the abort: their
+            # pending fins are recorded failed, without waiting.
+            self._tracer.fail_device()
             # The ring still holds the events before the abort, and every
             # rank that joins the coordinated abort dumps its own: the
             # postmortem bundle is the last events of every rank.
@@ -833,9 +1001,17 @@ class Coordinator:
     def _done_event(self):
         if self._stream is None:
             return None
-        done = torch.cuda.Event()
+        # Timed when the tracer is on: the event is also the trace fin's.
+        done = torch.cuda.Event(enable_timing=self._clock is not None)
         done.record(self._stream)
         return done, self._stream.device
+
+    def _defer_fins(self, entries, done):
+        """Tie the entries' trace ``fin`` to the Python plane's done
+        event (tracer on, CUDA)."""
+        if done is not None and self._clock is not None:
+            for e in entries:
+                e.device_done = (done[0], self._clock)
 
     def _execute_allreduce_bucket(self, backend, bucket, timeline):
         e0 = bucket[0]
@@ -856,6 +1032,7 @@ class Coordinator:
                             flat, e0.op, e0.process_set,
                             prescale=e0.prescale, postscale=e0.postscale)
                     done = self._done_event()
+                self._defer_fins(bucket, done)
                 i = 0
                 for e in bucket:
                     k = len(e.tensors)
@@ -865,8 +1042,7 @@ class Coordinator:
                     # when the response reaches the op layer).
                     self._release_name(e)
                     e.handle._complete(results[i:i + k], done)
-                    if self._tracer is not None:
-                        self._tracer.on_complete(e)
+                    self._trace_done(e)
                     self.tensors_processed += k
                     self.bytes_processed += sum(_nbytes(t)
                                                 for t in e.tensors)
@@ -913,10 +1089,10 @@ class Coordinator:
                 with self._issue([e]):
                     out = self._dispatch_single(backend, e)
                     done = self._done_event()
+                self._defer_fins([e], done)
                 self._release_name(e)
                 e.handle._complete(out, done)
-                if self._tracer is not None:
-                    self._tracer.on_complete(e)
+                self._trace_done(e)
         except Exception as exc:  # noqa: BLE001
             self._log.error("%s failed for %s: %s", e.kind, e.name, exc)
             e.handle._fail(_wrap_error(exc))

@@ -92,6 +92,28 @@ class CheckpointCorruptError(RuntimeError):
     (``checkpoint.py``)."""
 
 
+class SubmissionOrderError(RuntimeError):
+    """Ranks submitted collectives in divergent orders (or with divergent
+    auto-generated names), detected by the opt-in runtime order guard
+    (``HOROVOD_TPU_ORDER_CHECK=1``; analysis/order_guard.py). The static
+    analog is hvd-lint rule HVD203.
+
+    Not a ``HorovodInternalError``: the divergence is a deterministic
+    program bug, so the elastic restore loop (which retries internal
+    errors) must surface it instead of retrying into it again."""
+
+
+class LockOrderError(RuntimeError):
+    """hvd-sanitize detected a lock-acquisition-order cycle: acquiring
+    this lock while holding another reverses an order recorded earlier
+    in the process, so two threads interleaving the two paths can
+    deadlock (ABBA). The message carries both acquisition stacks
+    (``HVDTPU_SANITIZE``; analysis/sanitizer.py).
+
+    Not a ``HorovodInternalError``, for the reason
+    ``SubmissionOrderError`` is not one."""
+
+
 class ChaosInjectedError(RuntimeError):
     """A chaos ``fail`` injection fired at a point with no more specific
     error type (``HVDTPU_CHAOS``; ``chaos/``). KV points raise transport

@@ -35,11 +35,11 @@ plain allgathers of the slices, so every data plane runs it.
 
 import fnmatch
 import re
-import threading
 
 import numpy as np
 import torch
 
+from ..analysis import sanitizer
 from ..telemetry import core as telemetry
 from ..utils import envparse
 from ..utils.logging_util import get_logger
@@ -216,7 +216,7 @@ class SparsePlane:
 
     def __init__(self, pol):
         self.policy = pol
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("sparse.plane")
         self._ema = {}
         self.path_counts = {"gather": 0, "dense": 0}
         self._log = get_logger()

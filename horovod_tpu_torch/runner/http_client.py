@@ -36,10 +36,8 @@ takeover. With ``HVDTPU_RENDEZVOUS_ADDRS`` unset all of this is one
 cached-None check per call.
 
 ``kv_get``/``kv_put``/``kv_delete``/``kv_wait`` are chaos injection
-points (``chaos/``).
-
-Not ported: the sanitizer's blocking tripwire in ``_request`` (ROADMAP
-queue A, item 15).
+points (``chaos/``). Every verb goes through the sanitizer's blocking
+tripwire in ``_request`` (``HVDTPU_SANITIZE``).
 """
 
 import http.client
@@ -49,6 +47,7 @@ import time
 import urllib.error
 import urllib.request
 
+from ..analysis import sanitizer
 from ..chaos import inject as _chaos_inject
 from ..telemetry import core as telemetry
 from ..utils import envparse
@@ -270,6 +269,11 @@ def _url(addr, port, scope, key):
 
 
 def _request(method, url, data=None, token="", timeout=10, fo=None):
+    # hvd-sanitize tripwire: every KV verb funnels through this urlopen,
+    # so a collective-critical thread doing store I/O (outside a bounded
+    # sanitizer.allowed() scope, such as the guardian board's short-budget
+    # calls) is flagged here.
+    sanitizer.check_blocking("urlopen", url)
     req = urllib.request.Request(url, data=data, method=method)
     if token:
         req.add_header(AUTH_HEADER, token)

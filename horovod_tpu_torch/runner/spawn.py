@@ -90,6 +90,10 @@ class SlotProcess:
     def __init__(self, slot, command, env, prefix_output=True,
                  output_dir=None, ssh_port=None, ssh_identity_file=None):
         self.slot = slot
+        # hvd-sanitize tripwire: a worker spawn forks and execs (and ssh
+        # dials out): never acceptable on a collective-critical thread.
+        from ..analysis import sanitizer
+        sanitizer.check_blocking("subprocess.Popen", slot.hostname)
         if is_local(slot.hostname):
             full_env = dict(os.environ)
             full_env.update(env)

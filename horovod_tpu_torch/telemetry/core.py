@@ -25,6 +25,7 @@ import math
 import threading
 import time
 
+from ..analysis import sanitizer
 from ..utils import envparse
 
 
@@ -141,7 +142,7 @@ class MetricFamily:
         self.help = help
         self.labelnames = tuple(labelnames)
         self._children = {}
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("telemetry.family")
 
     def _new_child(self):
         return _Child()
@@ -216,7 +217,7 @@ class Registry:
 
     def __init__(self):
         self._table = {}
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("telemetry.registry")
 
     def _families(self):
         return self._table

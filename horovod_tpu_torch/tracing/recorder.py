@@ -32,10 +32,15 @@ import socket
 import threading
 import time
 
+from ..analysis import sanitizer
 from ..telemetry import core as telemetry
 from ..utils.logging_util import get_logger
 
 DEFAULT_FLIGHT_EVENTS = 4096
+# Re-anchor a DeviceClock once an event lies this far past its anchor:
+# the card's elapsed time is a float32 count of milliseconds, whose step
+# grows with the interval.
+REANCHOR_MS = 10_000.0
 # Shard/postmortem bytes pushed to the driver KV store are capped: the
 # store is an in-memory dict in the launcher process, and one chatty
 # rank must not evict the job's control plane. Truncation keeps the
@@ -75,6 +80,39 @@ class FlightRecorder:
 
     def __len__(self):
         return len(self._ring)
+
+
+class DeviceClock:
+    """Wall time of events on one CUDA device: an anchor event whose wall
+    time is known, and the card's own elapsed time from it, so that a
+    ``fin`` is the anchor's wall time plus ``anchor.elapsed_time(done)``.
+    Made once per stream when the stream is idle (one ``synchronize()``
+    of the anchor, never one per collective)."""
+
+    __slots__ = ("anchor", "wall")
+
+    def __init__(self, stream):
+        import torch
+        self.anchor = torch.cuda.Event(enable_timing=True)
+        self.anchor.record(stream)
+        self.anchor.synchronize()
+        self.wall = time.time()
+
+    @staticmethod
+    def event(stream):
+        """A timing event recorded on ``stream`` now."""
+        import torch
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(stream)
+        return event
+
+    def wall_of(self, event):
+        """Wall time at which ``event`` (completed) ran on the card."""
+        ms = self.anchor.elapsed_time(event)
+        t = self.wall + ms / 1e3
+        if ms > REANCHOR_MS:
+            self.anchor, self.wall = event, t
+        return t
 
 
 class ShardWriter:
@@ -160,7 +198,11 @@ class Tracer:
         self._flight = flight
         self._push_cfg = push_cfg  # (addr, port, token) or None
         self._occ = {}
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("tracing.occ")
+        # CUDA collectives whose ``fin`` waits for the card, in stream
+        # order: (done event, DeviceClock, [entries]); the cycle thread
+        # alone defers and polls them.
+        self._device = collections.deque()
         self._log = get_logger()
         self._m_events = telemetry.counter(
             "hvd_trace_events_total",
@@ -186,13 +228,66 @@ class Tracer:
             rec["b"] = nbytes
         self._emit(rec)
 
-    def on_complete(self, entry, ok=True):
+    def on_complete(self, entry, ok=True, t=None):
         name = entry.name or entry.kind
-        rec = {"e": "fin", "t": time.time(), "n": name,
+        rec = {"e": "fin", "t": time.time() if t is None else t, "n": name,
                "o": getattr(entry, "corr", None) or 0}
         if not ok:
             rec["err"] = 1
         self._emit(rec)
+
+    # -- CUDA completions ---------------------------------------------------
+    def defer_complete(self, entry, event, clock):
+        """A CUDA collective's ``fin``: recorded once ``event`` (recorded
+        on its stream after the collective) has completed, at the card's
+        time of it (``poll_device``). Entries that share an event share
+        one query."""
+        q = self._device
+        if q and q[-1][0] is event:
+            q[-1][2].append(entry)
+        else:
+            q.append((event, clock, [entry]))
+
+    def device_pending(self):
+        return bool(self._device)
+
+    def poll_device(self):
+        """Record the deferred ``fin``s whose event has completed: one
+        non-blocking ``query()`` per distinct event, in stream order,
+        stopping at the first that has not."""
+        q = self._device
+        while q:
+            event, clock, entries = q[0]
+            try:
+                if not event.query():
+                    return
+                t = clock.wall_of(event)
+            except RuntimeError as exc:   # a CUDA error: the card is lost
+                self._log.warning("tracing: a collective's done event "
+                                  "failed (%s)", exc)
+                self.fail_device()
+                return
+            q.popleft()
+            for entry in entries:
+                self.on_complete(entry, t=t)
+
+    def fail_device(self):
+        """The backend aborted: record every deferred ``fin`` now, with
+        ``err`` 1, without waiting for the card."""
+        q = self._device
+        while q:
+            for entry in q.popleft()[2]:
+                self.on_complete(entry, ok=False)
+
+    def drain_device(self, timeout_s):
+        """Shutdown: wait at most ``timeout_s`` for the deferred ``fin``s,
+        then record what is left with ``err`` 1."""
+        deadline = time.monotonic() + timeout_s
+        while self._device and time.monotonic() < deadline:
+            self.poll_device()
+            if self._device:
+                time.sleep(0.001)
+        self.fail_device()
 
     def event(self, cat, name, **fields):
         """Generic record (negotiation, guardian, elastic...)."""
@@ -268,9 +363,12 @@ class Tracer:
                 data = head + b"\n" + tail
             from ..runner import http_client
             addr, port, token = self._push_cfg
-            http_client.put_kv(addr, port, trace_scope(self.version),
-                               key, data, token=token, retries=2,
-                               deadline=5.0)
+            # A bounded push (2 retries, 5 s), made from the abort path on
+            # the cycle thread too: exempt from the sanitize tripwire.
+            with sanitizer.allowed("trace shard push (bounded)"):
+                http_client.put_kv(addr, port, trace_scope(self.version),
+                                   key, data, token=token, retries=2,
+                                   deadline=5.0)
         except Exception as exc:  # noqa: BLE001 — advisory plane
             self._log.warning("tracing: shard push %s failed: %s", key,
                               exc)

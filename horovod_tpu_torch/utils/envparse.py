@@ -176,6 +176,22 @@ FLIGHT_RECORDER = register(
 FLIGHT_RECORDER_EVENTS = register(
     "FLIGHT_RECORDER_EVENTS", "4096",
     "Flight-recorder ring capacity, events per rank")
+
+# -- correctness checking (analysis/; docs/lint.md) --------------------------
+ORDER_CHECK = register(
+    "ORDER_CHECK", "0",
+    "Submission-order guard: hash the tensor-name submission stream, "
+    "cross-check across ranks in SPMD mode (analysis/order_guard.py)")
+ORDER_CHECK_RECORD = register(
+    "ORDER_CHECK_RECORD", "",
+    "Dump the recorded submission sequence as JSON on shutdown")
+ORDER_CHECK_INTERVAL = register(
+    "ORDER_CHECK_INTERVAL", "5", "Seconds between SPMD digest checks")
+SANITIZE = register(
+    "SANITIZE", "0",
+    "hvd-sanitize runtime layer: lock-order deadlock detection, "
+    "blocking-call tripwire on collective-critical threads, shutdown "
+    "thread-leak audit (analysis/sanitizer.py)")
 LEGACY_AUTO_NAMES = register(
     "LEGACY_AUTO_NAMES", "0",
     "Name unnamed collectives by a process-global counter instead of by "

@@ -1,11 +1,13 @@
 """Run phases of ``chip_smoke.py`` alone on one GPU, without the rest of
 the script:
 
-    python3 scripts/torch_port_smoke_phases.py [autotune] [chaos] [ha] \
-        [serving] [fleet]
+    python3 scripts/torch_port_smoke_phases.py [sanitize] [trace] \
+        [autotune] [chaos] [ha] [serving] [fleet]
 
 Builds the kernels and the native core, then runs the phases named (all
-five by default). ``[autotune]``, ``[chaos]``, ``[ha]`` and ``[fleet]``
+seven by default). ``[sanitize]`` runs its one-rank job twice, with the
+runtime checkers and without them (the reference ``chip_smoke.py`` takes
+from ``[native]``); ``[trace]`` needs nothing else. ``[autotune]``, ``[chaos]``, ``[ha]`` and ``[fleet]``
 first train the flagship TransformerLM 5 steps on the single-process plane
 (the reference losses the phases hold theirs to; ``chip_smoke.py`` passes
 ``[native]``'s), and ``[ha]`` and ``[fleet]`` need ``[chaos]``'s uninjected
@@ -27,7 +29,8 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 
-PHASES = ("autotune", "chaos", "ha", "serving", "fleet")
+PHASES = ("sanitize", "trace", "autotune", "chaos", "ha", "serving",
+          "fleet")
 
 
 def main(which):
@@ -53,6 +56,12 @@ def main(which):
         torch.cuda.empty_cache()
         ref = {"transformer_losses": losses}
     t = time.perf_counter()
+    if "sanitize" in which:
+        cs.log(f"[launches] [sanitize] {cs.sanitize_phase(None)}")
+        t = cs.phase_done("sanitize", t)
+    if "trace" in which:
+        cs.log(f"[launches] [trace] {cs.trace_phase()}")
+        t = cs.phase_done("trace", t)
     if "autotune" in which:
         cs.log(f"[launches] [autotune] {cs.autotune_phase(ref)}")
         t = cs.phase_done("autotune", t)

@@ -43,7 +43,8 @@ def test_import_pulls_in_no_jax_and_no_horovod_tpu():
     # The walk reached every module of the telemetry, tracing and serving
     # planes, the models' remat and the BERT model, the programmatic and
     # cluster launch, the migration and lease specs, the fleet plane, and
-    # the offline analyzer (hvd-lint, hvd-sim, explain, perf, hvd-model).
+    # the offline analyzer (hvd-lint, hvd-sim, explain, perf, hvd-model)
+    # and the runtime checkers (the sanitizer, the order guard).
     for mod in ("telemetry.core", "telemetry.exposition",
                 "telemetry.aggregate", "telemetry.cli", "telemetry.spans",
                 "tracing", "tracing.recorder", "tracing.clock",
@@ -61,7 +62,8 @@ def test_import_pulls_in_no_jax_and_no_horovod_tpu():
                 "analysis.simulate", "analysis.explain", "analysis.sarif",
                 "analysis.baseline", "analysis.cli", "analysis.costmodel",
                 "analysis.protocol.model", "analysis.protocol.machines",
-                "analysis.protocol.cli"):
+                "analysis.protocol.cli", "analysis.sanitizer",
+                "analysis.order_guard"):
         assert f"'horovod_tpu_torch.{mod}'" in imported, mod
 
 
@@ -225,7 +227,8 @@ def test_knobs_and_reduce_ops_match_the_jax_package():
         "SERVING_MIGRATE_RETRIES", "SERVING_MIGRATE_DEADLINE",
         "SERVING_MIGRATE_MAX_BYTES", "FLEET_MIN_TRAIN_SLOTS",
         "FLEET_MIN_SERVE_SLOTS", "FLEET_WINDOW", "FLEET_COOLDOWN",
-        "FLEET_EBB_IDLE_S", "FLEET_TICK_S"}
+        "FLEET_EBB_IDLE_S", "FLEET_TICK_S", "SANITIZE", "ORDER_CHECK",
+        "ORDER_CHECK_RECORD", "ORDER_CHECK_INTERVAL"}
     for name, knob in tenv.KNOBS.items():
         assert getattr(tenv, name) == name
         assert knob["default"] == jenv.KNOBS[name]["default"]

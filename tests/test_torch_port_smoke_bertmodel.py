@@ -81,9 +81,13 @@ def _trace_inputs():
     text = "".join(f"# TYPE {n}_cluster gauge\n" for n in fams)
     launches = dict.fromkeys(("fwd", "bwd_dkv", "bwd_dq"),
                              chip_smoke.PAR_LM["layers"])
+    # one NCCL response a step holding both names, 50 ms on the card
+    # (each span above is 100 ms)
+    responses = [[[["grad", occ], ["grad.loss", occ]], 50.0]
+                 for occ in range(1, chip_smoke.TRACE_STEPS + 1)]
     res = {"families": fams, "samples": {n: 1 for n in fams},
            "launches": [launches] * chip_smoke.TRACE_STEPS,
-           "losses": [10.8, 10.1, 9.7, 9.3, 9.0]}
+           "losses": [10.8, 10.1, 9.7, 9.3, 9.0], "responses": responses}
     return res, shards, trace, report, text
 
 
@@ -114,3 +118,12 @@ def test_trace_verdict_holds_each_check():
     one_step = dict(report, steps=report["steps"][:1])
     bad = chip_smoke.trace_verdict(res, shards, trace, one_step, text)
     assert any("critical paths" in b for b in bad), bad
+    # a fin stamped before the card finished: a span under its NCCL time
+    early = copy.deepcopy(res)
+    early["responses"][2][1] = 150.0
+    bad = chip_smoke.trace_verdict(early, shards, trace, report, text)
+    assert any("2 of 10 gradient allreduce spans shorter" in b
+               for b in bad), bad
+    untimed = dict(res, responses=[])
+    bad = chip_smoke.trace_verdict(untimed, shards, trace, report, text)
+    assert any("0 of 0 gradient allreduce spans" in b for b in bad), bad
