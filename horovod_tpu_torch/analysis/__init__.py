@@ -3,6 +3,12 @@
 
 One finding type (:class:`Diagnostic`) across the layers:
 
+0. **traced-program analyzer** (:func:`check_fn` / :func:`check_graph`) —
+   traces a callable on fake tensors and walks the fx graph for
+   collectives on unbound axes (HVD101), collectives under a
+   rank-dependent ``torch.cond``/``while_loop`` (HVD102) and rank-dependent
+   branches whose collectives disagree (HVD103). Wired into
+   ``tpu_compile``'s ``verify=`` through :func:`verify_traceable`.
 1. **AST linter** (:func:`lint_paths` / :func:`lint_source`) — the
    HVD2xx collective rules and the HVD3xx concurrency rules over user
    scripts written against either package.
@@ -30,9 +36,7 @@ One finding type (:class:`Diagnostic`) across the layers:
    HVD3xx thread-safety rules.
 
 The CLI is ``python -m horovod_tpu_torch.analysis.cli`` (``hvd-model``:
-``python -m horovod_tpu_torch.analysis.protocol.cli``). Not ported yet:
-the traced-program analyzer behind ``verify=`` (the JAX package's
-jaxpr layer; :func:`verify_traceable` raises).
+``python -m horovod_tpu_torch.analysis.protocol.cli``).
 
 Public names resolve lazily (PEP 562): the control-plane runtime
 imports the ``analysis.protocol`` spec modules on its hot import path,
@@ -48,6 +52,7 @@ from .diagnostics import (  # noqa: F401  (eager: stdlib-only)
 
 #: public name -> the submodule that defines it (resolved on first use).
 _LAZY_NAMES = {
+    "check_fn": "fx_lint", "check_graph": "fx_lint",
     "AliasResolver": "ast_lint", "lint_source": "ast_lint",
     "lint_file": "ast_lint", "lint_paths": "ast_lint",
     "iter_python_files": "ast_lint",
@@ -66,8 +71,8 @@ _LAZY_NAMES = {
 }
 
 _LAZY_MODULES = frozenset({
-    "ast_lint", "baseline", "cli", "costmodel", "explain", "order_guard",
-    "protocol", "sanitizer", "sarif", "schedule", "simulate",
+    "ast_lint", "baseline", "cli", "costmodel", "explain", "fx_lint",
+    "order_guard", "protocol", "sanitizer", "sarif", "schedule", "simulate",
 })
 
 def __getattr__(name):
@@ -121,10 +126,11 @@ def enforce(diags, mode, what="function", logger=None):
 
 def verify_traceable(fn, args, kwargs=None, axis_sizes=None, mode=True,
                      what="compiled function"):
-    """The hook the compile bridge calls behind ``verify=``: needs the
-    traced-program analyzer, which is not ported yet."""
-    raise NotImplementedError(
-        "verify=: the traced-program collective analyzer (the torch.fx "
-        "counterpart of the JAX package's jaxpr_lint) is not ported yet "
-        "(ROADMAP queue A, item 15); the offline analyzer is "
-        "`python -m horovod_tpu_torch.analysis.cli verify`")
+    """Trace ``fn`` and enforce the findings — the hook the compile
+    bridge calls behind ``verify=``. ``axis_sizes`` defaults to the
+    runtime's axes."""
+    from .fx_lint import check_fn
+    if axis_sizes is None:
+        axis_sizes = runtime_axis_sizes()
+    diags = check_fn(fn, *args, axis_sizes=axis_sizes, **(kwargs or {}))
+    return enforce(diags, mode, what=what)

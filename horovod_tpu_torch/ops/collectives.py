@@ -142,6 +142,23 @@ def _empty_group_handle(kind):
     return h
 
 
+def fusion_buckets(n, k):
+    """Split n gradient/tensor slots into k contiguous near-even fusion
+    buckets (the reference's num_groups split, reference:
+    horovod/tensorflow/__init__.py:627+); k<=0 means one bucket. Shared
+    by the TF and keras bindings so both sync planes split identically."""
+    if not k or k <= 0 or n == 0:
+        return [list(range(n))]
+    k = min(int(k), n)
+    size, extra = divmod(n, k)
+    out, start = [], 0
+    for j in range(k):
+        end = start + size + (1 if j < extra else 0)
+        out.append(list(range(start, end)))
+        start = end
+    return out
+
+
 # --------------------------------------------------------------------------
 # allreduce
 # --------------------------------------------------------------------------

@@ -15,7 +15,9 @@ its plain PyTorch version — the same tiled online-softmax loop with the same
 tile-skip and mask rules — for a CPU tensor. ``chip_smoke.py`` holds each
 kernel against its plain version on the card; the CPU tests hold the plain
 versions against the JAX package. Every launch adds one to
-``LAUNCHES[<kernel>]``.
+``LAUNCHES[<kernel>]``. Under a lint trace (``analysis/fx_lint.py``) a CUDA
+call records one ``hvd_lint::kernel`` graph node on fake tensors instead:
+no launch, no count.
 
 Masking is in global coordinates, as in the JAX kernels: query row ``i``
 sits at ``q_offset + i``, key ``j`` at ``k_offset + j``; causal keeps
@@ -38,6 +40,7 @@ import warnings
 import torch
 import torch.nn.functional as F
 
+from ..analysis import fx_lint
 from ..utils import envparse
 
 NEG_INF = -1e30
@@ -464,10 +467,15 @@ def _check_dropout(kind, dropout, q, s_q, s_k):
 
 
 def _launch(fn_name, kernel, dtype_dim, tensors, dims, causal, sm_scale,
-            dropout):
+            dropout, n_out):
+    """Launch ``kernel`` on ``tensors``, whose last ``n_out`` it writes."""
+    mode = "" if dropout is None else dropout.mode
+    if fx_lint.tracing():
+        fx_lint.kernel(kernel + (f"_{mode}" if mode else ""),
+                       tensors[:-n_out], tensors[-n_out:])
+        return
     lib = _library()
     device = tensors[0].device
-    mode = "" if dropout is None else dropout.mode
     if dropout is None:
         drop_args = (None, 0.0, 0, 0)
     else:
@@ -507,7 +515,8 @@ def attention_fwd(q, k, v, lens, sm_scale, causal, dropout=None):
     o = torch.empty_like(q)
     lse = torch.empty(bh, s_q, dtype=torch.float32, device=q.device)
     _launch("hvd_flash_fwd", "fwd", (dtype, d), (q, k, v, o, lse),
-            (bh, s_q, s_k, q_off, k_off, kv_len), causal, sm_scale, dropout)
+            (bh, s_q, s_k, q_off, k_off, kv_len), causal, sm_scale, dropout,
+            2)
     return o, lse
 
 
@@ -525,7 +534,8 @@ def attention_bwd_dkv(q, k, v, do, lse, delta, lens, sm_scale, causal,
     dv = torch.empty_like(v)
     _launch("hvd_flash_bwd_dkv", "bwd_dkv", (dtype, d),
             (q, k, v, do, lse, delta, dk, dv),
-            (bh, s_q, s_k, q_off, k_off, kv_len), causal, sm_scale, dropout)
+            (bh, s_q, s_k, q_off, k_off, kv_len), causal, sm_scale, dropout,
+            2)
     return dk, dv
 
 
@@ -542,7 +552,8 @@ def attention_bwd_dq(q, k, v, do, lse, delta, lens, sm_scale, causal,
     dq = torch.empty_like(q)
     _launch("hvd_flash_bwd_dq", "bwd_dq", (dtype, d),
             (q, k, v, do, lse, delta, dq),
-            (bh, s_q, s_k, q_off, k_off, kv_len), causal, sm_scale, dropout)
+            (bh, s_q, s_k, q_off, k_off, kv_len), causal, sm_scale, dropout,
+            1)
     return dq
 
 

@@ -6,7 +6,8 @@ calls (``ppermute``, ``all_to_all``, ``psum``, ``pmean``, ``all_gather``,
 ``utils/jax_compat.py``'s ``axis_size``, ``vary_replicated`` and ``pvary``.
 An axis is a ``torch.distributed`` process group (NCCL for CUDA tensors,
 gloo for CPU tensors): the world group, a ``new_group`` or a dimension of a
-``DeviceMesh`` (``mesh["sp"]``, or its ``get_group()``).
+``DeviceMesh`` (``mesh["sp"]``, or its ``get_group()``). The name ``"hvd"``
+stands for the world group.
 
 JAX derives each collective's transpose from its varying-types rule; eager
 PyTorch derives none, so each collective here is a
@@ -31,10 +32,17 @@ loss, so code that masks per rank does so with ``torch.where``, never with
 a Python branch that leaves a collective out of one rank's graph. A gloo
 group refuses CUDA tensors and an NCCL group CPU tensors: nothing is staged
 through the host.
+
+Under a lint trace (``analysis.check_fn``, ``tpu_compile(verify=True)``)
+each collective records one graph node on fake tensors and communicates
+nothing, ``axis_index`` returns a traced 0-d tensor, and an axis may be any
+name the caller declares (``analysis/fx_lint.py``).
 """
 
 import torch
 import torch.distributed as dist
+
+from ..analysis import fx_lint
 
 
 def _group(axis):
@@ -44,17 +52,58 @@ def _group(axis):
         raise ValueError("an axis is a process group or a 1-D DeviceMesh, "
                          "not None (use torch.distributed.group.WORLD for "
                          "the world group)")
+    if isinstance(axis, str):
+        if axis == fx_lint.WORLD_AXIS and dist.is_initialized():
+            return dist.group.WORLD
+        raise ValueError(
+            f"the axis name {axis!r} names no process group: at run time an "
+            f"axis is a ProcessGroup, a 1-D DeviceMesh or "
+            f"{fx_lint.WORLD_AXIS!r} (the world group); other names exist "
+            "only for the lint, declared with axis_sizes=")
     return axis.get_group() if hasattr(axis, "get_group") else axis
 
 
 def axis_size(axis):
     """Number of ranks on ``axis`` (``jax_compat.axis_size``)."""
+    if fx_lint.tracing():
+        return fx_lint.axis_size(axis)
     return dist.get_world_size(_group(axis))
 
 
 def axis_index(axis):
-    """This rank's index on ``axis`` (``lax.axis_index``)."""
+    """This rank's index on ``axis`` (``lax.axis_index``): an int, or under
+    a lint trace a traced 0-d int64 tensor, whose uses the lint follows."""
+    if fx_lint.tracing():
+        return fx_lint.axis_index(axis)
     return dist.get_rank(_group(axis))
+
+
+def axis_rank(axis):
+    """This rank's index on a live group's ``axis`` as an int, under a lint
+    trace too: for library code that computes offsets from the rank (the
+    ring's and the pipeline's schedules), which a trace then specializes to
+    this rank, as it does Python control flow."""
+    return dist.get_rank(_group(axis))
+
+
+def _traced_size(axis):
+    """Ranks on ``axis`` under a lint trace; 1 for a name bound nowhere,
+    which the walk then reports (HVD101)."""
+    try:
+        return fx_lint.axis_size(axis)
+    except fx_lint.UnboundAxisError:
+        return 1
+
+
+def _traced_shape(x, axis, grow=None, shrink=None):
+    """``x``'s shape with dimension ``grow`` times and ``shrink`` divided by
+    the axis size: a collective's result under a lint trace."""
+    n, shape = _traced_size(axis), list(x.shape)
+    if grow is not None:
+        shape[grow] *= n
+    if shrink is not None:
+        shape[shrink] //= n
+    return shape
 
 
 def _check(tensors, group, what):
@@ -156,8 +205,20 @@ def ppermute(xs, perm, axis, *, async_op=False):
     gradients along the inverse permutation."""
     single = isinstance(xs, torch.Tensor)
     xs = (xs,) if single else tuple(xs)
-    group = _group(axis)
     perm = tuple((int(s), int(d)) for s, d in perm)
+    if fx_lint.tracing():
+        try:
+            _check_perm(perm, fx_lint.axis_size(axis))
+        except fx_lint.UnboundAxisError:
+            pass
+        outs = tuple(fx_lint.collective("ppermute", x, axis) for x in xs)
+        outs = outs[0] if single else outs
+        if not async_op:
+            return outs
+        pending = Pending()
+        pending._outs = outs
+        return pending
+    group = _group(axis)
     _check_perm(perm, dist.get_world_size(group))
     _check(xs, group, "ppermute")
     pending = Pending() if async_op else None
@@ -207,6 +268,10 @@ class _AllToAll(torch.autograd.Function):
 def all_to_all(x, axis, split_axis, concat_axis):
     """``lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)`` over
     one ``all_to_all_single``; the backward is the inverse all_to_all."""
+    if fx_lint.tracing():
+        nd = x.dim()
+        return fx_lint.collective("all_to_all", x, axis, _traced_shape(
+            x, axis, grow=concat_axis % nd, shrink=split_axis % nd))
     group = _group(axis)
     _check((x,), group, "all_to_all")
     nd = x.dim()
@@ -238,6 +303,8 @@ class _Psum(torch.autograd.Function):
 def psum(x, axis):
     """Sum over ``axis`` to a replicated value; the backward is the identity
     (JAX's transpose of a psum whose result is invariant)."""
+    if fx_lint.tracing():
+        return fx_lint.collective("psum", x, axis)
     group = _group(axis)
     _check((x,), group, "psum")
     return _Psum.apply(x, group, 1.0)
@@ -245,6 +312,8 @@ def psum(x, axis):
 
 def pmean(x, axis):
     """Mean over ``axis``; the backward divides by the axis size."""
+    if fx_lint.tracing():
+        return fx_lint.collective("pmean", x, axis)
     group = _group(axis)
     _check((x,), group, "pmean")
     return _Psum.apply(x, group, 1.0 / dist.get_world_size(group))
@@ -267,6 +336,8 @@ def vary_replicated(x, axis):
     over ``axis`` backward (``jax_compat.vary_replicated``, the ``pvary``
     that varying-types JAX inserts). Without it, a replicated parameter's
     gradient holds only this rank's part."""
+    if fx_lint.tracing():
+        return x.view_as(x)
     group = _group(axis)
     _check((x,), group, "vary_replicated")
     return _VaryReplicated.apply(x, group)
@@ -347,6 +418,9 @@ def all_gather(x, axis, dim=0):
     ``psum_scatter`` of the cotangent: each rank's block gets the sum of
     every rank's cotangent for it, as when each rank uses the gathered
     value on its own data (FSDP's weight gather)."""
+    if fx_lint.tracing():
+        return fx_lint.collective("all_gather", x, axis, _traced_shape(
+            x, axis, grow=dim % x.dim()))
     group = _group(axis)
     _check((x,), group, "all_gather")
     return _AllGather.apply(x, group, dim % x.dim(), False)
@@ -358,6 +432,9 @@ def all_gather_invariant(x, axis, dim=0):
     GSPMD's partitioner gives a replicated output). The backward takes
     this rank's block of the cotangent, with no sum: Megatron's gather of
     column-parallel outputs."""
+    if fx_lint.tracing():
+        return fx_lint.collective("all_gather", x, axis, _traced_shape(
+            x, axis, grow=dim % x.dim()))
     group = _group(axis)
     _check((x,), group, "all_gather_invariant")
     return _AllGather.apply(x, group, dim % x.dim(), True)
@@ -367,6 +444,9 @@ def psum_scatter(x, axis, dim=0):
     """``lax.psum_scatter(x, axis, scatter_dimension=dim, tiled=True)``:
     the sum over ranks, this rank's block of ``dim``. The backward is the
     tiled ``all_gather`` of the cotangent."""
+    if fx_lint.tracing():
+        return fx_lint.collective("psum_scatter", x, axis, _traced_shape(
+            x, axis, shrink=dim % x.dim()))
     group = _group(axis)
     _check((x,), group, "psum_scatter")
     return _PsumScatter.apply(x, group, dim % x.dim())

@@ -30,7 +30,7 @@ collectives, so the backward issues the same ones in the same order.
 
 import torch
 
-from .axis import axis_index, axis_size, ppermute, psum, vary_replicated
+from .axis import axis_rank, axis_size, ppermute, psum, vary_replicated
 
 
 def _tree_map(fn, *trees):
@@ -65,7 +65,7 @@ def _circuit(stage_fn, params_ro, queue, axis, *, first=None, last=None):
     last rank; the caller masks and replicates).
     """
     n = axis_size(axis)
-    idx = axis_index(axis)
+    idx = axis_rank(axis)
     per = queue.shape[0]
     m = per * n
     ticks = m + n - 1
@@ -100,7 +100,7 @@ def _circuit(stage_fn, params_ro, queue, axis, *, first=None, last=None):
 
 
 def _replicate_from_last(outputs, axis):
-    is_last = _flag(axis_index(axis) == axis_size(axis) - 1, outputs.device)
+    is_last = _flag(axis_rank(axis) == axis_size(axis) - 1, outputs.device)
     return psum(torch.where(is_last, outputs, torch.zeros_like(outputs)),
                 axis)
 
@@ -144,7 +144,7 @@ def pipeline_apply(stage_fn, stage_params, microbatches, axis, *,
             f"{[tuple(leaf.shape) for leaf in leaves]}. Build the global "
             "tree with stack_stage_params(stages, n_ranks) and take this "
             "rank's rows of axis 0.")
-    idx = axis_index(axis)
+    idx = axis_rank(axis)
     per = microbatches.shape[0]
 
     first = last = None

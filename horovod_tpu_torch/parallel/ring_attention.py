@@ -18,7 +18,7 @@ rotations, which every rank issues in the same order.
 import torch
 
 from ..ops.flash_attention import NEG_INF, flash_attention, reference_attention
-from .axis import axis_index, axis_size, ppermute
+from .axis import axis_rank, axis_size, ppermute
 
 
 def _merge(o1, lse1, o2, lse2):
@@ -91,5 +91,5 @@ def ring_attention(q, k, v, axis, *, causal=True, sm_scale=None,
     def attend(q, k, v, q_offset, k_offset):
         return fn(q, k, v, causal=causal, sm_scale=sm_scale,
                   q_offset=q_offset, k_offset=k_offset, with_lse=True)
-    o = _ring_local(q, (k, v), axis_index(axis), n, rotate, attend)
+    o = _ring_local(q, (k, v), axis_rank(axis), n, rotate, attend)
     return o.to(q.dtype)

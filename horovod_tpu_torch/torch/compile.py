@@ -25,7 +25,11 @@ contract:
   raises; on CPU tensors it takes the einsum lowering. Either fallback
   warns once;
 - explicit randomness: ``rng`` is an int seed, the counterpart of the JAX
-  key. One seed gives the same dropout patterns on every run.
+  key. One seed gives the same dropout patterns on every run;
+- ``verify=``: the hvd-lint traced-program analyzer
+  (``analysis/fx_lint.py``) checks the forward once per call signature, at
+  its first call, on that call's inputs. The check traces on fake tensors:
+  it launches no kernel and issues no collective.
 
     compiled = tpu_compile(model, compute_dtype=torch.bfloat16)
     opt = torch.optim.AdamW(compiled.params.values(), lr=1e-4)
@@ -46,6 +50,7 @@ import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
 from .. import basics
+from ..analysis import fx_lint
 from ..ops import flash_attention as fa
 from ..utils import envparse
 
@@ -68,11 +73,13 @@ def dropout_mode(on_cuda):
 class _StepRandomness:
     """The randomness of one forward: the keep-masks from a device
     generator and the per-site Philox seeds from a host generator, both
-    seeded from ``seed`` and drawn in site order."""
+    seeded from ``seed`` and drawn in site order. Without a ``generator``
+    (a lint trace) the masks come from the default generator."""
 
     def __init__(self, seed, generator):
         self.device_gen = generator
-        self.device_gen.manual_seed(seed)
+        if generator is not None:
+            generator.manual_seed(seed)
         self.host_gen = np.random.default_rng(seed)
 
     def keep_mask(self, shape, rate, device):
@@ -87,8 +94,9 @@ def _resolve_static_mask(attn_mask):
     """None when ``attn_mask`` keeps every position, else the mask. Only a
     CPU mask is inspected: reading a CUDA one would make the host wait for
     the device at every attention site, so any CUDA mask counts as not
-    statically all-keep."""
-    if attn_mask is None or attn_mask.is_cuda:
+    statically all-keep, as does any mask under a lint trace (its values
+    are fake)."""
+    if attn_mask is None or attn_mask.is_cuda or fx_lint.tracing():
         return attn_mask
     if attn_mask.dtype == torch.bool:
         return None if bool(attn_mask.all()) else attn_mask
@@ -157,7 +165,7 @@ def _sdpa(rand, query, key, value, attn_mask=None, dropout_p=0.0,
         return fa.flash_attention(
             q, k, v, causal=bool(is_causal), sm_scale=scale,
             dropout_mask=dm, dropout_rate=rate, dropout_seed=seed)
-    if unsupported:
+    if unsupported and not fx_lint.tracing():
         fa.note_flash_fallback(unsupported)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -211,13 +219,15 @@ class CompiledModule:
     weights are one entry) and the module's own code."""
 
     def __init__(self, module, params, buffers, device, loss_key="loss",
-                 compute_dtype=None):
+                 compute_dtype=None, verify=False):
         self.module = module
         self.params = params
         self.buffers = buffers
         self.device = device
         self.loss_key = loss_key
         self.compute_dtype = compute_dtype
+        self.verify = verify
+        self._verified = set()
         self._generator = None
 
     def _randomness(self, rng):
@@ -236,31 +246,56 @@ class CompiledModule:
         type. ``rng`` (an int) seeds every dropout site of this call; with
         ``train`` and no ``rng`` there is no dropout, as in the JAX bridge.
         """
+        train = bool(train)
+        inputs = {k: self._coerce(v) for k, v in inputs.items()}
+        if self.verify:
+            self._verify(params, inputs, train, rng is not None)
+        rand = self._randomness(rng) if train else None
+        devices = [self.device] if self.device.type == "cuda" else []
+        with torch.random.fork_rng(devices=devices,
+                                   enabled=rand is not None):
+            # nn.Dropout on hidden states draws from the global
+            # generators, seeded here from the same seed.
+            if rand is not None:
+                torch.random.default_generator.manual_seed(int(rng))
+                if devices:
+                    with torch.cuda.device(self.device):
+                        torch.cuda.manual_seed(int(rng))
+            return self._forward(params, self.buffers, inputs, rand, train)
+
+    def _forward(self, params, buffers, inputs, rand, train):
         if self.compute_dtype is not None:
             params = {k: (v.to(self.compute_dtype)
                           if v.is_floating_point() else v)
                       for k, v in params.items()}
-        train = bool(train)
-        rand = self._randomness(rng) if train else None
         was_training = self.module.training
         self.module.train(train and rand is not None)
-        devices = [self.device] if self.device.type == "cuda" else []
         try:
-            with torch.random.fork_rng(devices=devices,
-                                       enabled=rand is not None), \
-                    _BridgeMode(rand):
-                # nn.Dropout on hidden states draws from the global
-                # generators, seeded here from the same seed.
-                if rand is not None:
-                    torch.random.default_generator.manual_seed(int(rng))
-                    if devices:
-                        with torch.cuda.device(self.device):
-                            torch.cuda.manual_seed(int(rng))
+            with _BridgeMode(rand):
                 return torch.func.functional_call(
-                    self.module, {**self.buffers, **params}, (),
-                    {k: self._coerce(v) for k, v in inputs.items()})
+                    self.module, {**buffers, **params}, (), inputs)
         finally:
             self.module.train(was_training)
+
+    def _verify(self, params, inputs, train, seeded):
+        """The hvd-lint pass over the forward, once per (train, seeded,
+        input names) signature, before its first run: a trace on fake
+        tensors that launches and communicates nothing. The trace draws
+        its dropout from a generator of its own, so that the real call's
+        randomness is untouched."""
+        sig = (train, seeded, tuple(sorted(inputs)))
+        if sig in self._verified:
+            return
+        from .. import analysis
+        rand = _StepRandomness(0, None) if train and seeded else None
+
+        def fwd(params, buffers, inputs):
+            return self._forward(params, buffers, inputs, rand, train)
+
+        analysis.verify_traceable(fwd, (params, self.buffers, inputs),
+                                  mode=self.verify,
+                                  what="torch-bridge forward")
+        self._verified.add(sig)
 
     def _coerce(self, v):
         return v.to(self.device) if isinstance(v, torch.Tensor) else v
@@ -342,15 +377,13 @@ def tpu_compile(module, input_names=None, example_inputs=None,
     as ``hvd.tpu_compile``. ``input_names`` and ``example_inputs`` are
     accepted and have no effect: they specialise the JAX package's fx trace,
     and on CUDA the module runs as it is, with nothing traced. ``verify``
-    (the hvd-lint analyzer of the traced program) is not ported; the
-    offline analyzer (``python -m horovod_tpu_torch.analysis.cli``) is.
+    runs the hvd-lint traced-program analyzer over each forward signature
+    at its first call (``False``: off; ``"warn"``: log the findings;
+    ``True``/``"error"``: raise :class:`CollectiveLintError` on an
+    error-severity finding); the trace runs on fake tensors, launching no
+    kernel and issuing no collective.
     """
     del input_names, example_inputs
-    if verify is not False:
-        raise NotImplementedError(
-            "tpu_compile(verify=...): the traced-program collective "
-            "analyzer (the torch.fx counterpart of the JAX package's "
-            "jaxpr_lint) is not ported yet (ROADMAP queue A, item 15)")
     device = _device()
     # named_parameters() lists a tied tensor once, under its first name;
     # functional_call keeps the tie, so it stays one trainable leaf.
@@ -359,4 +392,4 @@ def tpu_compile(module, input_names=None, example_inputs=None,
               for n, p in module.named_parameters()}
     buffers = {n: b.to(device) for n, b in module.named_buffers()}
     return CompiledModule(module, params, buffers, device, loss_key=loss_key,
-                          compute_dtype=compute_dtype)
+                          compute_dtype=compute_dtype, verify=verify)

@@ -498,6 +498,13 @@ def test_import_loads_no_parser_and_enforce_raises():
     assert t_analysis.enforce(errs, "warn") == errs
     with pytest.raises(CollectiveLintError, match="HVD201"):
         t_analysis.enforce(errs, True)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        t_analysis.verify_traceable(lambda: None, ())
+    # verify_traceable traces with the fx analyzer and enforces its
+    # findings.
+    import torch
+    from horovod_tpu_torch.parallel import axis as t_axis
+    assert t_analysis.verify_traceable(lambda x: x * 2,
+                                       (torch.ones(2),)) == []
+    with pytest.raises(CollectiveLintError, match="HVD101"):
+        t_analysis.verify_traceable(lambda x: t_axis.psum(x, "tp"),
+                                    (torch.ones(2),))
     assert t_analysis.runtime_axis_sizes() == {}

@@ -269,9 +269,15 @@ def test_chip_smoke_dense_witness_equals_the_flash_path(port, monkeypatch,
 
 
 def test_bridge_contract_checks(port):
-    model, _ = _hf_bert()
-    with pytest.raises(NotImplementedError, match="analyzer"):
-        tcompile.tpu_compile(model, verify=True)
+    model, cfg = _hf_bert()
+    # verify=True checks each forward signature once, at its first call,
+    # and the checked call equals the unchecked one.
+    ids = _ids(cfg)
+    checked = tcompile.tpu_compile(model, verify=True)
+    got = checked(input_ids=ids, labels=ids)
+    assert checked._verified == {(False, False, ("input_ids", "labels"))}
+    want = tcompile.tpu_compile(model)(input_ids=ids, labels=ids)
+    assert float(got["loss"]) == float(want["loss"])
     comp = tcompile.tpu_compile(model, input_names=INPUTS)
     assert "cls.predictions.decoder.weight" not in comp.params
     assert all(p.dtype == torch.float32 and p.requires_grad

@@ -34,17 +34,25 @@ def test_import_pulls_in_no_jax_and_no_horovod_tpu():
             "m.startswith('horovod_tpu.')]\n"
             "print(bad)\n"
             "print(sorted(m for m in sys.modules "
-            "if m.startswith('horovod_tpu_torch.')))\n")
+            "if m.startswith('horovod_tpu_torch.')))\n"
+            "print(sorted(m for m in ('tensorflow', 'keras') "
+            "if m in sys.modules))\n")
+    # KERAS_BACKEND=torch, as a keras job on the port runs: the bindings
+    # import neither framework until used (keras itself imports jax where
+    # jax is installed, so it must stay out of the import).
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, KERAS_BACKEND="torch"))
     assert out.returncode == 0, out.stderr
-    bad, imported = out.stdout.strip().splitlines()
+    bad, imported, frameworks = out.stdout.strip().splitlines()
     assert bad == "[]"
+    assert frameworks == "[]"
     # The walk reached every module of the telemetry, tracing and serving
     # planes, the models' remat and the BERT model, the programmatic and
     # cluster launch, the migration and lease specs, the fleet plane, and
-    # the offline analyzer (hvd-lint, hvd-sim, explain, perf, hvd-model)
-    # and the runtime checkers (the sanitizer, the order guard).
+    # the offline analyzer (hvd-lint, hvd-sim, explain, perf, hvd-model),
+    # the runtime checkers (the sanitizer, the order guard), the traced
+    # program analyzer, and the TensorFlow, Keras and data bindings.
     for mod in ("telemetry.core", "telemetry.exposition",
                 "telemetry.aggregate", "telemetry.cli", "telemetry.spans",
                 "tracing", "tracing.recorder", "tracing.clock",
@@ -63,7 +71,12 @@ def test_import_pulls_in_no_jax_and_no_horovod_tpu():
                 "analysis.baseline", "analysis.cli", "analysis.costmodel",
                 "analysis.protocol.model", "analysis.protocol.machines",
                 "analysis.protocol.cli", "analysis.sanitizer",
-                "analysis.order_guard"):
+                "analysis.order_guard", "analysis.fx_lint", "tensorflow",
+                "tensorflow.elastic", "tensorflow.sync_batch_norm",
+                "tensorflow.keras", "tensorflow.keras.callbacks",
+                "tensorflow.keras.elastic", "keras", "keras.elastic",
+                "_keras", "_keras.callbacks", "_keras.elastic", "data",
+                "data.data_loader_base"):
         assert f"'horovod_tpu_torch.{mod}'" in imported, mod
 
 
