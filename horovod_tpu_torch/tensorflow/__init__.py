@@ -581,13 +581,16 @@ def _reduce_grads(grads, op, process_set, predivide=1.0, num_groups=0,
 
 def tpu_compile(fn, example_inputs=None, input_signature=None,
                 dynamic_batch=True):
-    """The JAX package's ``tf.function`` → JAX bridge
-    (``horovod_tpu/tensorflow/compile.py``) has no port yet."""
-    raise NotImplementedError(
-        "horovod_tpu_torch.tensorflow.tpu_compile: the tf.function bridge "
-        "(the JAX package's tensorflow/compile.py) is not ported yet "
-        "(ROADMAP queue A, item 16b); train a TF model through this "
-        "binding's DistributedOptimizer / DistributedGradientTape")
+    """Compile a TF2 callable so that its model math runs on the card: the
+    traced graph is recorded and interpreted in torch
+    (horovod_tpu_torch/tensorflow/compile.py, the port of the JAX
+    package's graph -> JAX bridge, the redesign of the reference's
+    device-kernel registration, horovod/tensorflow/mpi_ops.cc:486-493 /
+    xla_mpi_ops.cc:174-232)."""
+    from .compile import tpu_compile as _impl
+    return _impl(fn, example_inputs=example_inputs,
+                 input_signature=input_signature,
+                 dynamic_batch=dynamic_batch)
 
 
 def _resolve_groups(tvars, num_groups, groups):

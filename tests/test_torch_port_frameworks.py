@@ -533,8 +533,11 @@ def test_single_process_collectives_equal_the_jax_binding(port, hvd):
     assert mods["port"].gpu_available() == torch.cuda.is_available()
     assert mods["port"].rank() == 0 and mods["port"].size() == 1
     assert mods["port"].join() == -1
-    with pytest.raises(NotImplementedError, match="16b"):
-        mods["port"].tpu_compile(lambda t: t)
+    # The tf.function bridge (item 16b) compiles and runs.
+    compiled = mods["port"].tpu_compile(lambda t: t, example_inputs=(x,))
+    out = compiled(x)
+    assert out.dtype == torch.float64 and out.device == port.device()
+    np.testing.assert_array_equal(out.numpy(), x.numpy())
 
 
 def test_broadcast_arrays_keeps_bfloat16(port):

@@ -35,7 +35,8 @@ def test_import_pulls_in_no_jax_and_no_horovod_tpu():
             "print(bad)\n"
             "print(sorted(m for m in sys.modules "
             "if m.startswith('horovod_tpu_torch.')))\n"
-            "print(sorted(m for m in ('tensorflow', 'keras') "
+            "print(sorted(m for m in ('tensorflow', 'keras', 'pyarrow', "
+            "'pyspark', 'ray', 'mxnet', 'pytorch_lightning', 'fsspec') "
             "if m in sys.modules))\n")
     # KERAS_BACKEND=torch, as a keras job on the port runs: the bindings
     # import neither framework until used (keras itself imports jax where
@@ -52,7 +53,9 @@ def test_import_pulls_in_no_jax_and_no_horovod_tpu():
     # cluster launch, the migration and lease specs, the fleet plane, and
     # the offline analyzer (hvd-lint, hvd-sim, explain, perf, hvd-model),
     # the runtime checkers (the sanitizer, the order guard), the traced
-    # program analyzer, and the TensorFlow, Keras and data bindings.
+    # program analyzer, the TensorFlow, Keras and data bindings, the
+    # tf.function bridge, and the Spark, Ray and MXNet integrations, none of
+    # which loads its framework (nor pyarrow, fsspec) at import.
     for mod in ("telemetry.core", "telemetry.exposition",
                 "telemetry.aggregate", "telemetry.cli", "telemetry.spans",
                 "tracing", "tracing.recorder", "tracing.clock",
@@ -76,7 +79,10 @@ def test_import_pulls_in_no_jax_and_no_horovod_tpu():
                 "tensorflow.keras", "tensorflow.keras.callbacks",
                 "tensorflow.keras.elastic", "keras", "keras.elastic",
                 "_keras", "_keras.callbacks", "_keras.elastic", "data",
-                "data.data_loader_base"):
+                "data.data_loader_base", "tensorflow.compile", "spark",
+                "spark.store", "spark.data", "spark._transform",
+                "spark.torch", "spark.keras", "spark.lightning", "ray",
+                "ray.strategy", "ray.elastic", "mxnet"):
         assert f"'horovod_tpu_torch.{mod}'" in imported, mod
 
 

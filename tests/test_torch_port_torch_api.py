@@ -190,14 +190,15 @@ def test_every_public_name_of_the_jax_package_binding():
 
 @pytest.mark.parametrize("call,item", [
     (lambda m: __import__("horovod_tpu_torch.tensorflow", fromlist=["x"])
-     .tpu_compile(lambda t: t), "16b"),
+     .tpu_compile(lambda t: t, example_inputs=(np.arange(3.0),))
+     (np.arange(3.0)), "16b"),
 ])
 def test_modes_not_ported_raise_with_their_roadmap_item(port, call, item):
     # metrics_snapshot raised here (item 13) until the telemetry plane was
-    # ported, the bridge's verifier (item 15) until the fx lint was; the
-    # TensorFlow bridge is item 16b's.
-    with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
-        call(port)
+    # ported, the bridge's verifier (item 15) until the fx lint was, the
+    # TensorFlow bridge (item 16b) until it was: each now runs.
+    out = call(port)
+    np.testing.assert_array_equal(out.numpy(), np.arange(3.0))
     compiled = port.tpu_compile(torch.nn.Linear(2, 2), verify=True)
     compiled(input=torch.ones(1, 2))
     assert compiled._verified == {(False, False, ("input",))}
